@@ -1,0 +1,138 @@
+"""Public entry point + ``repro_torch.tune`` integration for the tiled
+matmul (the paper's §8 case study).
+
+``matmul_tuned(a, b)`` with tile sizes omitted resolves (bm, bn, bk)
+through ``@autotune``: the :class:`MatmulTunable` built from the operand
+shapes is tuned on first sight and served from the port's tuning cache
+afterwards.  The lattice is the set of tile shapes compiled into the
+kernel that divide the problem, each within the 227 KB of dynamic shared
+memory a block may use.  The cost model prices the H100: the larger of
+the flops at 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32 FMA) and
+the operand panels re-streamed at 3.35 TB/s, plus a per-K-step cost of
+each block's load-and-sync round.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, ClassVar, Mapping
+
+import torch
+
+from ...core.search_space import Param, SearchSpace
+from ...tune import autotune
+from ..common import (BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S, LAUNCH_US, SMS,
+                      as_device_tensor, generator, resolve_device, time_fn,
+                      tunable_device)
+from .kernel import TILE_K, TILE_M, TILE_N, matmul_kernel
+from .ref import matmul_ref
+
+_SMEM_LIMIT = 227 * 1024
+# modeling assumption: one block's staged load + two barriers per K step
+_STEP_US = 0.5
+
+
+def smem_bytes(cfg: Mapping[str, Any], dtype_bytes: int) -> int:
+    """Dynamic shared memory of one block (see ``csrc/matmul_tuned.cu``)."""
+
+    bm, bn, bk = cfg["bm"], cfg["bn"], cfg["bk"]
+    if dtype_bytes == 2:
+        return (bm * (bk + 8) + bk * (bn + 8)) * 2 + 8 * 256 * 4
+    return (bk * (bm + 1) + bk * bn) * 4
+
+
+def tuning_space(M: int, N: int, K: int, dtype_bytes: int = 2) -> SearchSpace:
+    """Compiled tile shapes that divide (M, N, K)."""
+
+    vals = {name: tuple(v for v in tiles if dim % v == 0)
+            for name, tiles, dim in (("bm", TILE_M, M), ("bn", TILE_N, N),
+                                     ("bk", TILE_K, K))}
+    empty = [name for name, v in vals.items() if not v]
+    if empty:
+        raise ValueError(f"({M}, {N}, {K}) has no compiled tile for "
+                         f"{', '.join(empty)} (bm in {TILE_M}, bn in "
+                         f"{TILE_N}, bk in {TILE_K})")
+    space = SearchSpace(params=[Param(k, v) for k, v in vals.items()])
+    space.constraints.append(
+        lambda c: smem_bytes(c, dtype_bytes) <= _SMEM_LIMIT)
+    return space
+
+
+def cost_model(cfg: Mapping[str, Any], *, M: int, N: int, K: int,
+               dtype_bytes: int = 2) -> float:
+    """Modeled microseconds for the whole product on an H100."""
+
+    bm, bn, bk = cfg["bm"], cfg["bn"], cfg["bk"]
+    peak = BF16_FLOPS if dtype_bytes == 2 else F32_FLOPS
+    compute_us = 2 * M * N * K / peak * 1e6
+    # A is read once per column of tiles, B once per row of tiles
+    streamed = (M * K * (N // bn) + K * N * (M // bm) + M * N) * dtype_bytes
+    mem_us = streamed / HBM_BYTES_PER_S * 1e6
+    steps = (M // bm) * (N // bn) * (K // bk)
+    return max(compute_us, mem_us) + steps * _STEP_US / SMS + LAUNCH_US
+
+
+@dataclass(frozen=True)
+class MatmulTunable:
+    """``repro_torch.tune`` Tunable: (bm, bn, bk) for an (M, K) x (K, N)
+    matmul (bf16 for 2-byte, f32 for 4-byte elements).
+    ``device=None`` measures on the card."""
+
+    M: int
+    N: int
+    K: int
+    dtype_bytes: int = 2
+    device: str | None = None
+    name: ClassVar[str] = "kernels.matmul_tuned"
+
+    def space(self) -> SearchSpace:
+        return tuning_space(self.M, self.N, self.K, self.dtype_bytes)
+
+    def cost(self, cfg: Mapping[str, Any]) -> float:
+        return cost_model(cfg, M=self.M, N=self.N, K=self.K,
+                          dtype_bytes=self.dtype_bytes)
+
+    def measure(self, cfg: Mapping[str, Any], *, warmup: int = 1,
+                iters: int = 3) -> float:
+        """Microseconds of the kernel at this tile on random operands
+        made from a seeded generator on the device."""
+
+        dev = resolve_device(self.device)
+        dtype = torch.bfloat16 if self.dtype_bytes == 2 else torch.float32
+        g = generator(dev)
+        a = torch.randn(self.M, self.K, generator=g, device=dev).to(dtype)
+        b = torch.randn(self.K, self.N, generator=g, device=dev).to(dtype)
+        run = lambda: matmul_tuned(a, b, bm=cfg["bm"], bn=cfg["bn"],
+                                   bk=cfg["bk"])
+        return time_fn(run, device=dev, warmup=warmup, iters=iters)
+
+    def fingerprint(self) -> dict[str, Any]:
+        fp = {"tunable": self.name, "M": self.M, "N": self.N, "K": self.K,
+              "dtype_bytes": self.dtype_bytes}
+        if self.device is not None:
+            fp["device"] = self.device
+        return fp
+
+
+def _tunable(a, b, *, device=None) -> MatmulTunable:
+    ta = a if isinstance(a, torch.Tensor) else torch.as_tensor(a)
+    tb = b if isinstance(b, torch.Tensor) else torch.as_tensor(b)
+    return MatmulTunable(M=ta.shape[0], N=tb.shape[1], K=ta.shape[1],
+                         dtype_bytes=ta.element_size(),
+                         device=tunable_device(a, device))
+
+
+@autotune(_tunable, params=("bm", "bn", "bk"))
+def matmul_tuned(a, b, *, bm: int | None = None, bn: int | None = None,
+                 bk: int | None = None, device=None) -> torch.Tensor:
+    """Tiled matmul of two f32 or two bf16 matrices; omitted tile sizes
+    are auto-tuned (cached).  Runs where ``a`` lies if it is a tensor,
+    else on ``device`` (``cuda:0`` by default)."""
+
+    a = as_device_tensor(a, device)
+    b = as_device_tensor(b, a.device)
+    return matmul_kernel(a, b, bm, bn, bk)
+
+
+__all__ = ["matmul_tuned", "MatmulTunable", "tuning_space", "cost_model",
+           "matmul_ref", "matmul_kernel", "smem_bytes"]
