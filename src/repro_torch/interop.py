@@ -1,7 +1,7 @@
-"""What crosses between ``repro`` and the port: data and platform state.
+"""What crosses between ``repro`` and the port: data, weights, decode
+state and platform state.
 
-The slice runs no model, so its "weights" are the arrays a tuner feeds
-its kernels and the platform description.  Arrays cross as numpy:
+Arrays cross as numpy:
 
 * :func:`from_numpy` takes int32, f32 and bf16 arrays.  A bf16 array
   from JAX (``np.asarray`` of a bfloat16 ``jax.Array``) has a numpy
@@ -10,6 +10,11 @@ its kernels and the platform description.  Arrays cross as numpy:
   imported.
 * :func:`to_numpy` returns int32 and f32 as they are, and bf16 widened
   to f32 (exact).
+* :func:`params_from_jax` and :func:`decode_state_from_jax` take the JAX
+  package's parameter or decode-state tree as numpy arrays (nested dicts,
+  stacked leading blocks dim) and return the port's tree in the same
+  layout, dtype for dtype, so both packages compute the same thing;
+  :func:`params_to_numpy` goes back (bf16 widened to f32).
 
 :func:`platform_spec_from_dict` and :func:`wave_params_from_dict` build
 the port's ``PlatformSpec`` and ``WaveParams`` from the same dict a test
@@ -56,6 +61,37 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
+def _tree_from_numpy(tree, device):
+    if isinstance(tree, Mapping):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    return from_numpy(tree, device)
+
+
+def params_from_jax(tree, device=None) -> dict:
+    """The port's parameter tree from the JAX package's, given as numpy
+    arrays (``jax.tree.map(np.asarray, params)``): same nested-dict
+    layout, stacked shapes and dtypes, on ``device`` (``cuda:0`` by
+    default)."""
+
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+def decode_state_from_jax(tree, device=None) -> dict:
+    """The port's decode state (KV rings) from the JAX package's, given
+    as numpy arrays; same layout as :func:`params_from_jax`."""
+
+    return _tree_from_numpy(tree, resolve_device(device))
+
+
+def params_to_numpy(tree) -> dict:
+    """A parameter or state tree on the host: nested dicts of numpy
+    arrays (bf16 widened to f32, exact)."""
+
+    if isinstance(tree, Mapping):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return to_numpy(tree)
+
+
 def platform_spec_from_dict(d: Mapping[str, Any]) -> PlatformSpec:
     return PlatformSpec(**dict(d))
 
@@ -64,5 +100,6 @@ def wave_params_from_dict(d: Mapping[str, Any]) -> WaveParams:
     return WaveParams(**dict(d))
 
 
-__all__ = ["from_numpy", "to_numpy", "platform_spec_from_dict",
-           "wave_params_from_dict"]
+__all__ = ["from_numpy", "to_numpy", "params_from_jax",
+           "decode_state_from_jax", "params_to_numpy",
+           "platform_spec_from_dict", "wave_params_from_dict"]

@@ -29,7 +29,8 @@ BUILD_ROOT = _HERE.parents[3] / "build" / "repro_torch_kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # C entry points and their argument types: c_void_p for every pointer
 # and the stream, so ctypes never truncates one to a 32-bit int
 SIGNATURES: dict[str, list] = {
@@ -39,6 +40,10 @@ SIGNATURES: dict[str, list] = {
     "se_sweep_eval": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # a, b, c, M, N, K, dtype, bm, bn, bk, stream
     "mm_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, o, BH, S, D, dtype, causal, has_window, window, scale,
+    # bq, bk, stream
+    "fa_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                   _P],
 }
 
 

@@ -22,7 +22,8 @@ Spec format (JSON or dict)::
 
 ``tunable`` names resolve through a registry (:func:`register_tunable`):
 ``platform.abstract``, ``platform.minimum``, ``kernels.tuned_reduction``,
-``kernels.sweep_eval`` and ``kernels.matmul_tuned`` are pre-registered.
+``kernels.sweep_eval``, ``kernels.matmul_tuned`` and
+``kernels.flash_attention`` are pre-registered.
 ``grid`` expands list-valued entries into the cartesian product of jobs.
 """
 
@@ -87,9 +88,11 @@ def _ensure_builtin_factories() -> None:
     if _builtins_loaded:
         return
 
+    from ..kernels.flash_attention.ops import FlashAttentionTunable
     from ..kernels.matmul_tuned.ops import MatmulTunable
     from ..kernels.sweep_eval.ops import SweepEvalTunable
     from ..kernels.tuned_reduction.ops import ReductionTunable
+    _FACTORIES.setdefault("kernels.flash_attention", FlashAttentionTunable)
     _FACTORIES.setdefault("kernels.matmul_tuned", MatmulTunable)
     _FACTORIES.setdefault("kernels.tuned_reduction", ReductionTunable)
     _FACTORIES.setdefault("kernels.sweep_eval", SweepEvalTunable)

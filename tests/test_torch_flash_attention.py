@@ -1,0 +1,168 @@
+"""The port's flash attention against the JAX package's.
+
+``repro``'s ``flash_attention`` (the Pallas kernel in interpret mode, as
+the JAX package's own tests run it) and ``attention_ref`` against
+``repro_torch``'s ``flash_attention`` on CPU tensors (the plain version),
+with the cases and tolerances of the JAX package's kernel tests.  Inputs
+are made with numpy from a seed and fed to both.
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.ops import \
+    attention_ref as jax_attention_ref  # noqa: E402
+from repro.kernels.flash_attention.ops import \
+    flash_attention as jax_flash_attention  # noqa: E402
+from repro_torch.interop import from_numpy, to_numpy  # noqa: E402
+from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    BLOCK_K, BLOCK_Q, flash_kernel)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    FlashAttentionTunable, attention_ref, flash_attention, smem_bytes,
+    tuning_space, visible_pairs, visited_blocks)
+from repro_torch.tune import (TuningCache, available_tunables,  # noqa: E402
+                              set_default_cache, tune)
+
+
+@pytest.fixture(autouse=True)
+def _port_cache(tmp_path):
+    prev = set_default_cache(TuningCache(tmp_path / "cache.json"))
+    yield
+    set_default_cache(prev)
+
+
+def _qkv(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [jnp.asarray(rng.standard_normal(shape), dtype) for _ in range(3)]
+
+
+def _port(*arrays):
+    return [from_numpy(np.asarray(a), "cpu") for a in arrays]
+
+
+@pytest.mark.parametrize("dtype,tol", [(jnp.float32, 2e-5),
+                                       (jnp.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_matches_jax(dtype, tol, causal, D):
+    q, k, v = _qkv((2, 2, 256, D), dtype, seed=11)
+    want = np.asarray(jax_flash_attention(q, k, v, causal=causal,
+                                          block_q=128, block_k=128),
+                      np.float32)
+    ref = np.asarray(jax_attention_ref(q, k, v, causal=causal), np.float32)
+    tq, tk, tv = _port(q, k, v)
+    got = flash_attention(tq, tk, tv, causal=causal, block_q=128,
+                          block_k=128)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    for other in (want, ref):
+        np.testing.assert_allclose(to_numpy(got), other, rtol=tol,
+                                   atol=tol * 10)
+
+
+@pytest.mark.parametrize("window", [32, 100, 256])
+def test_flash_sliding_window_matches_jax(window):
+    q, k, v = _qkv((1, 2, 256, 64), jnp.float32, seed=13)
+    want = np.asarray(jax_flash_attention(q, k, v, causal=True,
+                                          window=window, block_q=64,
+                                          block_k=64))
+    got = flash_attention(*_port(q, k, v), causal=True, window=window,
+                          block_q=64, block_k=64)
+    np.testing.assert_allclose(to_numpy(got), want, rtol=2e-5, atol=2e-4)
+    np.testing.assert_allclose(
+        to_numpy(got), np.asarray(jax_attention_ref(q, k, v, causal=True,
+                                                    window=window)),
+        rtol=2e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("bq,bk", [(64, 64), (128, 64), (64, 128),
+                                   (256, 256)])
+def test_flash_block_invariance_matches_jax(bq, bk):
+    q, k, v = _qkv((1, 1, 256, 64), jnp.float32, seed=5)
+    want = np.asarray(jax_flash_attention(q, k, v, causal=True, block_q=bq,
+                                          block_k=bk))
+    got = flash_attention(*_port(q, k, v), causal=True, block_q=bq,
+                          block_k=bk)
+    np.testing.assert_allclose(to_numpy(got), want, rtol=2e-5, atol=2e-4)
+
+
+def test_a_row_with_no_visible_key_is_zero():
+    q, k, v = _qkv((1, 2, 128, 64), jnp.float32, seed=2)
+    want = np.asarray(jax_attention_ref(q, k, v, causal=True, window=0))
+    got = to_numpy(flash_attention(*_port(q, k, v), causal=True, window=0,
+                                   block_q=64, block_k=64))
+    assert not np.any(got) and not np.any(want)
+    assert not np.any(np.isnan(got))
+
+
+def test_wrapper_validates_before_dispatch():
+    q = torch.zeros(1, 2, 96, 64)
+    with pytest.raises(ValueError, match="not divisible"):
+        flash_attention(q, q, q, block_q=64, block_k=64)
+    with pytest.raises(TypeError):
+        flash_kernel(q[0].double(), q[0].double(), q[0].double(),
+                     block_q=32, block_k=32)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, q, q, window=-1, block_q=32, block_k=32)
+
+
+def test_tuning_space_fits_a_hopper_block_and_no_tpu_constant():
+    for dtype_bytes in (2, 4):
+        for D in (64, 128):
+            space = list(tuning_space(4096, D, dtype_bytes))
+            assert space
+            for cfg in space:
+                assert cfg["block_q"] in BLOCK_Q
+                assert cfg["block_k"] in BLOCK_K
+                assert smem_bytes(cfg, D, dtype_bytes) <= 227 * 1024
+    # tiles must divide S: S = 96 admits block 32 only for block_k
+    with pytest.raises(ValueError, match="block_q"):
+        tuning_space(96, 64)
+    # the reference's TPU numbers (64 MiB VMEM, 197 TFLOP/s, 819 GB/s)
+    # are not the port's
+    src = inspect.getsource(ops)
+    for tpu in ("197", "819", "2**20", "vmem", "VMEM"):
+        assert tpu not in src, tpu
+
+
+def test_cost_model_counts_the_visited_blocks():
+    # causal: the diagonal and below; window: a band
+    assert visited_blocks(256, 64, 64) == 10
+    assert visited_blocks(256, 64, 64, causal=False) == 16
+    assert visited_blocks(256, 64, 64, window=64) == 7
+    assert visible_pairs(4, causal=True) == 10
+    assert visible_pairs(4, causal=True, window=2) == 7
+    t = FlashAttentionTunable(S=4096, D=128, BH=20)
+    costs = {tuple(c.values()): t.cost(c) for c in t.space()}
+    assert all(c > 0 for c in costs.values())
+    # the causal work at qwen1.5-4b's shape, 4 * BH * S^2/2 * D ~ 86 GFLOP
+    assert 4 * 20 * visible_pairs(4096) * 128 == pytest.approx(85.92e9,
+                                                               rel=1e-3)
+
+
+def test_registered_in_the_plan():
+    assert "kernels.flash_attention" in available_tunables()
+
+
+def test_autotune_resolves_on_cpu_then_hits():
+    q, k, v = _port(*_qkv((1, 2, 256, 64), jnp.float32, seed=3))
+    got = flash_attention(q, k, v, causal=True)          # blocks omitted
+    decision = flash_attention.tune(q, k, v, causal=True)
+    assert decision.stats["cache"] == "hit"
+    assert set(decision.best_config) == {"block_q", "block_k"}
+    want = attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_measure_engine_on_cpu_then_hit():
+    t = FlashAttentionTunable(S=128, D=64, BH=2, dtype_bytes=4,
+                              device="cpu")
+    first = tune(t, engine="measure", top_k=2, repeats=1)
+    assert first.stats["provenance"] == "measured"
+    assert tune(t, engine="measure", top_k=2,
+                repeats=1).stats["cache"] == "hit"

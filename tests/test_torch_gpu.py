@@ -11,7 +11,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.search_space import wg_ts_space  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    BLOCK_K, BLOCK_Q, HEAD_DIMS, flash_kernel)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    attention_ref, flash_attention)
 from repro_torch.core.wave_model import WaveParams, model_time  # noqa: E402
 from repro_torch.kernels.matmul_tuned.kernel import matmul_kernel  # noqa: E402
 from repro_torch.kernels.matmul_tuned.ops import (matmul_ref,  # noqa: E402
@@ -19,6 +24,11 @@ from repro_torch.kernels.matmul_tuned.ops import (matmul_ref,  # noqa: E402
 from repro_torch.kernels.sweep_eval.kernel import sweep_kernel  # noqa: E402
 from repro_torch.kernels.sweep_eval.ops import sweep_eval, sweep_ref  # noqa: E402
 from repro_torch.kernels.tuned_reduction.kernel import reduce_kernel  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.attention import attention  # noqa: E402
+from repro_torch.models.common import tree_map  # noqa: E402
+from repro_torch.models.transformer import block_params  # noqa: E402
+from repro_torch.runtime import Server  # noqa: E402
 from repro_torch.kernels.tuned_reduction.ops import (  # noqa: E402
     ReductionTunable, reduce_1d, reduce_chunked)
 from repro_torch.tune import TuningCache, set_default_cache, tune  # noqa: E402
@@ -134,3 +144,104 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         matmul_tuned(torch.ones(96, 64, device=cuda),
                      torch.ones(64, 64, device=cuda), bm=64, bn=64, bk=64)
+
+
+# flash attention: bf16 |got - want| <= 2e-2 + 2e-2 |want| (P is rounded to
+# bf16 for P.V, the output to bf16); f32 rtol 2e-5 / atol 2e-4, as the JAX
+# package's kernel tests
+FLASH_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (2e-5, 2e-4)}
+
+
+def _qkv(shape, dtype, device, seed):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=device).to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("mask", [(True, None), (True, 100), (False, None),
+                                  (True, 0)])
+def test_flash_kernel_every_tile_close_to_plain_version(cuda, dtype, D,
+                                                        mask):
+    causal, window = mask
+    S = 256
+    q, k, v = _qkv((2, 3, S, D), dtype, cuda, seed=D + S)
+    want = attention_ref(q, k, v, causal=causal, window=window).float()
+    rtol, atol = FLASH_TOL[dtype]
+    for bq in BLOCK_Q:
+        for bk in BLOCK_K:
+            before = flash_kernel.launches
+            got = flash_attention(q, k, v, causal=causal, window=window,
+                                  block_q=bq, block_k=bk)
+            assert flash_kernel.launches == before + 1
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == q.shape
+            torch.testing.assert_close(got.float(), want, rtol=rtol,
+                                       atol=atol, msg=f"tile ({bq}, {bk})")
+    if window == 0:
+        assert not got.float().abs().max().item()
+
+
+def test_flash_kernel_at_the_model_shape(cuda):
+    q, k, v = _qkv((1, 20, 1024, 128), torch.bfloat16, cuda, seed=7)
+    for window in (None, 256):
+        got = flash_attention(q, k, v, causal=True, window=window)
+        want = attention_ref(q, k, v, causal=True, window=window)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_flash_kernel_raises_for_an_uncompiled_head_dim(cuda):
+    q, k, v = _qkv((1, 2, 128, 96), torch.bfloat16, cuda, seed=3)
+    before = flash_kernel.launches
+    with pytest.raises(ValueError, match="head dim 96"):
+        flash_attention(q, k, v, block_q=64, block_k=64)
+    with pytest.raises(ValueError, match="not compiled"):
+        flash_attention(*_qkv((1, 2, 512, 64), torch.bfloat16, cuda, 4),
+                        block_q=256, block_k=64)
+    assert flash_kernel.launches == before
+
+
+def test_attention_with_an_uncompiled_head_dim_raises_on_the_card(cuda):
+    """use_flash=True on a CUDA tensor whose head dim was not compiled
+    reaches the wrapper and raises; it does not take the plain math."""
+
+    cfg = get_config("qwen1.5-4b").reduced().replace(head_dim=96)
+    params = build_model(cfg).init(0, device=cuda)
+    attn = block_params(params["blocks"], 0)["0_dense"]["attn"]
+    g = torch.Generator(device=cuda)
+    g.manual_seed(6)
+    x = torch.randn(1, 128, cfg.d_model, generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    pos = torch.arange(128, device=cuda)[None]
+    before = flash_kernel.launches
+    with pytest.raises(ValueError, match="head dim 96 is not compiled"):
+        attention(attn, cfg, x, pos, use_flash=True)
+    assert flash_kernel.launches == before
+
+
+def test_reduced_forward_on_the_card_equals_the_cpu_port(cuda):
+    """qwen1.5-4b reduced, with a head dim the kernel compiles: the card's
+    forward (flash kernel, cuBLAS products) against the CPU port's (plain
+    versions) on the same bf16 weights, within the bf16 tolerance."""
+
+    cfg = get_config("qwen1.5-4b").reduced().replace(head_dim=64)
+    api = build_model(cfg)
+    params = api.init(0, device="cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    g = torch.Generator()
+    g.manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (2, 256), generator=g)
+    before = flash_kernel.launches
+    got = api.forward(on_card, {"tokens": toks.to(cuda)})
+    assert flash_kernel.launches == before + cfg.n_layers
+    want = api.forward(params, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-2, atol=2e-2)
+
+    # the Server on the card drains and agrees with its offline forward
+    server = Server(api, on_card, batch=2, context=64, prefill_chunk=8)
+    req = server.submit(toks[0, :20].tolist(), max_new=3)
+    server.run_until_drained()
+    assert req.done and len(req.out) == 3

@@ -25,6 +25,11 @@ from repro_torch.kernels.tuned_reduction.ops import (  # noqa: E402
 from repro_torch.tune import (PlatformTunable, TuningCache,  # noqa: E402
                               TuningPlan, set_default_cache)
 from repro_torch.core.wave_model import WaveParams  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    FlashAttentionTunable, flash_attention)
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 
 N = 2**14
 PAPER = {"size": 2**20, "NP": 128, "GMT": 16, "L": 8, "kind": "minimum"}
@@ -83,6 +88,7 @@ def test_entry_points_without_a_card_raise():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
     p = WaveParams(size=16, kind="minimum")
+    api = build_model(get_config("smollm-135m").reduced())
     calls = [
         lambda: reduce_1d(np.arange(8, dtype=np.int32), op="min"),
         lambda: sweep_eval(np.ones(4, np.int32), np.ones(4, np.int32), p),
@@ -93,6 +99,14 @@ def test_entry_points_without_a_card_raise():
         lambda: MatmulTunable(64, 64, 64).measure(
             {"bm": 64, "bn": 64, "bk": 32}),
         lambda: from_numpy(np.ones(4, np.float32)),
+        lambda: flash_attention(np.ones((1, 2, 128, 64), np.float32),
+                                np.ones((1, 2, 128, 64), np.float32),
+                                np.ones((1, 2, 128, 64), np.float32)),
+        lambda: FlashAttentionTunable(S=128, D=64, BH=2).measure(
+            {"block_q": 64, "block_k": 64}),
+        lambda: api.init(0),
+        lambda: api.init_decode_state(2, 16),
+        lambda: serve_main(["--arch", "smollm-135m", "--requests", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -113,7 +127,7 @@ for name in names:
 bad = [m for m in sys.modules
        if m in ("jax", "ml_dtypes", "repro") or m.startswith(("jax.", "repro."))]
 assert not bad, bad
-assert len(names) >= 25, names
+assert len(names) >= 40, names
 print(len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
