@@ -3,11 +3,15 @@
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
 started together) for ``sm_90a`` and linked into ONE shared library,
 ``build/repro_torch_kernels/<hash>/libkernels.so`` at the checkout's root,
-where ``<hash>`` digests the sources and the flags: an edited source
-builds anew, an unchanged one is loaded as it is.  The library has a
-plain C interface — each entry point takes pointers, sizes and the
-stream, launches on that stream and returns ``cudaGetLastError()`` — so
-no PyTorch header is compiled.  A failed build raises.
+where ``<hash>`` digests the sources, the headers they include
+(``csrc/*.cuh``) and the flags: an edited source or header builds anew,
+an unchanged one is loaded as it is.  The library has a plain C
+interface — each entry point takes pointers, sizes and the stream,
+launches on that stream and returns ``cudaGetLastError()`` — so no
+PyTorch header is compiled.  It links no ``libcuda``: the one driver
+function it needs, ``cuTensorMapEncodeTiled`` (TMA descriptors), comes
+from ``cudaGetDriverEntryPoint`` at run time (``csrc/sm90.cuh``), so the
+build needs only the toolkit.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -59,9 +63,12 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = CSRC) -> str:
+    """Digest of the flags and of every ``*.cu`` and ``*.cuh`` in
+    ``csrc``: a header edit must not reuse a library built before it."""
+
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -80,10 +87,37 @@ def nvcc_path() -> str:
 
 
 def _ptxas_lines(log: str) -> list[str]:
-    keep = ("Compiling entry", "registers", "smem")
+    """Per kernel: its entry, registers, shared memory and spills, and
+    any ptxas warning (e.g. wgmma serialised, setmaxnreg ignored)."""
+
+    keep = ("Compiling entry", "registers", "smem", "warning",
+            "Performance")
     return [ln.strip() for ln in log.splitlines()
             if ("ptxas" in ln and any(k in ln for k in keep))
             or "spill" in ln]
+
+
+def ptxas_usage(lines: list[str]) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes of each kernel entry in ``lines`` (one
+    source file's ptxas lines, as :class:`BuildInfo` keeps them)."""
+
+    usage: dict[str, dict[str, int]] = {}
+    entry = None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            usage[entry] = {}
+        elif entry is None:
+            continue
+        elif "spill stores" in ln:
+            words = ln.replace(",", " ").split()
+            usage[entry]["spill_stores"] = int(
+                words[words.index("stores") - 3])
+            usage[entry]["spill_loads"] = int(words[words.index("loads") - 3])
+        elif "Used" in ln and "registers" in ln:
+            words = ln.split()
+            usage[entry]["registers"] = int(words[words.index("Used") + 1])
+    return usage
 
 
 def build() -> BuildInfo:
@@ -183,4 +217,4 @@ def check(err: int, what: str) -> None:
 
 
 __all__ = ["build", "library", "build_info", "check", "source_hash",
-           "BuildInfo", "SIGNATURES"]
+           "ptxas_usage", "BuildInfo", "SIGNATURES"]

@@ -1,9 +1,10 @@
-"""Wrapper of the hand-written CUDA tiled GEMM (``csrc/matmul_tuned.cu``).
+"""Wrapper of the hand-written CUDA GEMM (``csrc/matmul_tuned.cu``).
 
-A CUDA tensor launches the kernel (WMMA tensor-core path for bf16, FMA
-path for f32) and raises if the launch fails; a CPU tensor takes the
-plain version, :func:`~.ref.matmul_ref`.  ``matmul_kernel.launches``
-counts kernel launches.
+A CUDA tensor launches the kernel (a TMA + ``wgmma`` pipeline for bf16,
+the FMA path for f32) and raises if the launch fails; a CPU tensor takes
+the plain version, :func:`~.ref.matmul_ref`.  Both check the operands
+the same way first, so what the kernel cannot take raises on either
+device.  ``matmul_kernel.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -13,11 +14,31 @@ import torch
 from .. import _build
 from .ref import matmul_ref
 
-# the (bm, bn, bk) tile shapes compiled as template instantiations
-TILE_M = (64, 128)
-TILE_N = (64, 128)
-TILE_K = (32, 64)
+# the (bm, bn, bk) tile shapes compiled as template instantiations, per
+# element size: bf16 has bm = 128 (two consumer warpgroups of 64 rows) and
+# bk = 64 (one 128-byte swizzle row); f32 is the FMA kernel's grid
+TILES = {
+    2: {"bm": (128,), "bn": (128, 256), "bk": (64,)},
+    4: {"bm": (64, 128), "bn": (64, 128), "bk": (32, 64)},
+}
+# depth of the bf16 kernel's ring of shared-memory stages for each bn: the
+# deepest that fits 227 KB (csrc/matmul_tuned.cu, wg::Tile)
+BF16_STAGES = {128: 7, 256: 4}
 _DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2}
+
+
+def _check_layout(name: str, t: torch.Tensor) -> None:
+    """What TMA (and the f32 kernel's plain indexing) needs of an
+    operand: contiguous rows, 16 bytes apart or a multiple of that, from
+    a 16-byte aligned base."""
+
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous (strides {t.stride()})")
+    if t.stride(0) * t.element_size() % 16:
+        raise ValueError(f"{name}'s row stride of {t.stride(0)} elements "
+                         f"is not a multiple of 16 bytes")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")
 
 
 def matmul_kernel(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
@@ -32,21 +53,22 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
                         f"{a.dtype} and {b.dtype}")
     if a.device != b.device:
         raise ValueError("a and b must be on one device")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a.device}")
+    _check_layout("a", a)
+    _check_layout("b", b)
     M, K = a.shape
     N = b.shape[1]
-    if bm not in TILE_M or bn not in TILE_N or bk not in TILE_K:
-        raise ValueError(f"tile ({bm}, {bn}, {bk}) is not compiled; "
-                         f"bm in {TILE_M}, bn in {TILE_N}, bk in {TILE_K}")
+    tiles = TILES[a.element_size()]
+    if bm not in tiles["bm"] or bn not in tiles["bn"] or bk not in tiles["bk"]:
+        raise ValueError(f"tile ({bm}, {bn}, {bk}) is not compiled for "
+                         f"{a.dtype}; bm in {tiles['bm']}, bn in "
+                         f"{tiles['bn']}, bk in {tiles['bk']}")
     if M % bm or N % bn or K % bk:
         raise ValueError(f"dims ({M}, {N}, {K}) not divisible by the tile "
                          f"({bm}, {bn}, {bk})")
-    a, b = a.contiguous(), b.contiguous()
     if a.device.type == "cpu":
         return matmul_ref(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"unsupported device {a.device}")
-    if a.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError("operands must be 16-byte aligned")
     lib = _build.library()
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
@@ -60,4 +82,4 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
 
 matmul_kernel.launches = 0
 
-__all__ = ["matmul_kernel", "TILE_M", "TILE_N", "TILE_K"]
+__all__ = ["matmul_kernel", "TILES", "BF16_STAGES"]

@@ -5,15 +5,18 @@ matmul (the paper's §8 case study).
 through ``@autotune``: the :class:`MatmulTunable` built from the operand
 shapes is tuned on first sight and served from the port's tuning cache
 afterwards.  The lattice is the set of tile shapes compiled into the
-kernel that divide the problem, each within the 227 KB of dynamic shared
-memory a block may use.  The cost model prices the H100: the larger of
-the flops at 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32 FMA) and
-the operand panels re-streamed at 3.35 TB/s, plus a per-K-step cost of
-each block's load-and-sync round.
+kernel for the operands' dtype that divide the problem, each within the
+227 KB of dynamic shared memory a block may use.  The cost model prices
+the H100: for bf16, waves of output tiles over the 132 SMs, each tile
+its K steps and its epilogue at rates fitted on the card; for f32, the
+larger of the flops at 67 TFLOP/s (FMA) and the operand panels
+re-streamed at 3.35 TB/s, plus a per-K-step cost of each block's
+load-and-sync round.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, ClassVar, Mapping
 
@@ -21,15 +24,23 @@ import torch
 
 from ...core.search_space import Param, SearchSpace
 from ...tune import autotune
-from ..common import (BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S, LAUNCH_US, SMS,
+from ..common import (F32_FLOPS, HBM_BYTES_PER_S, LAUNCH_US, SMS,
                       as_device_tensor, generator, resolve_device, time_fn,
                       tunable_device)
-from .kernel import TILE_K, TILE_M, TILE_N, matmul_kernel
+from .kernel import BF16_STAGES, TILES, matmul_kernel
 from .ref import matmul_ref
 
 _SMEM_LIMIT = 227 * 1024
-# modeling assumption: one block's staged load + two barriers per K step
+# f32 (FMA kernel), a modeling assumption: one block's staged load + two
+# barriers per K step
 _STEP_US = 0.5
+# bf16 (wgmma kernel), per bn: the time of one block's K step and of one
+# tile's epilogue, fitted on an NVIDIA H100 80GB HBM3 at a 700 W power
+# limit to each tile's median time at 8192 x 8192 x {1024, 8192}
+# (tools/matmul_report.py, "fit"); the medians include bursts at the
+# clock the card settles to under sustained load
+_WG_STEP_US = {128: 0.446, 256: 0.780}
+_WG_EPILOGUE_US = {128: 0.98, 256: 1.02}
 
 
 def smem_bytes(cfg: Mapping[str, Any], dtype_bytes: int) -> int:
@@ -37,21 +48,24 @@ def smem_bytes(cfg: Mapping[str, Any], dtype_bytes: int) -> int:
 
     bm, bn, bk = cfg["bm"], cfg["bn"], cfg["bk"]
     if dtype_bytes == 2:
-        return (bm * (bk + 8) + bk * (bn + 8)) * 2 + 8 * 256 * 4
+        # 1024 bytes to align the ring for the 128-byte swizzle, the
+        # stages of A and B tiles, a full and an empty barrier per stage
+        stages = BF16_STAGES[bn]
+        return 1024 + stages * (bm * bk + bk * bn) * 2 + 2 * stages * 8
     return (bk * (bm + 1) + bk * bn) * 4
 
 
 def tuning_space(M: int, N: int, K: int, dtype_bytes: int = 2) -> SearchSpace:
-    """Compiled tile shapes that divide (M, N, K)."""
+    """Tile shapes compiled for the dtype that divide (M, N, K)."""
 
-    vals = {name: tuple(v for v in tiles if dim % v == 0)
-            for name, tiles, dim in (("bm", TILE_M, M), ("bn", TILE_N, N),
-                                     ("bk", TILE_K, K))}
+    tiles = TILES[dtype_bytes]
+    vals = {name: tuple(v for v in tiles[name] if dim % v == 0)
+            for name, dim in (("bm", M), ("bn", N), ("bk", K))}
     empty = [name for name, v in vals.items() if not v]
     if empty:
         raise ValueError(f"({M}, {N}, {K}) has no compiled tile for "
-                         f"{', '.join(empty)} (bm in {TILE_M}, bn in "
-                         f"{TILE_N}, bk in {TILE_K})")
+                         f"{', '.join(empty)} (bm in {tiles['bm']}, bn in "
+                         f"{tiles['bn']}, bk in {tiles['bk']})")
     space = SearchSpace(params=[Param(k, v) for k, v in vals.items()])
     space.constraints.append(
         lambda c: smem_bytes(c, dtype_bytes) <= _SMEM_LIMIT)
@@ -63,8 +77,12 @@ def cost_model(cfg: Mapping[str, Any], *, M: int, N: int, K: int,
     """Modeled microseconds for the whole product on an H100."""
 
     bm, bn, bk = cfg["bm"], cfg["bn"], cfg["bk"]
-    peak = BF16_FLOPS if dtype_bytes == 2 else F32_FLOPS
-    compute_us = 2 * M * N * K / peak * 1e6
+    if dtype_bytes == 2:
+        # one block per SM: the tiles run in waves of 132
+        waves = math.ceil((M // bm) * (N // bn) / SMS)
+        tile_us = (K // bk) * _WG_STEP_US[bn] + _WG_EPILOGUE_US[bn]
+        return waves * tile_us + LAUNCH_US
+    compute_us = 2 * M * N * K / F32_FLOPS * 1e6
     # A is read once per column of tiles, B once per row of tiles
     streamed = (M * K * (N // bn) + K * N * (M // bm) + M * N) * dtype_bytes
     mem_us = streamed / HBM_BYTES_PER_S * 1e6

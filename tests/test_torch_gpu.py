@@ -108,22 +108,104 @@ def test_sweep_kernel_on_a_dense_ragged_lattice(cuda):
     assert torch.equal(got, sweep_ref(p, wg, ts))
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3),
-                                       (torch.bfloat16, 5e-2)])
-def test_matmul_kernel_every_tile_close_to_plain_version(cuda, dtype, tol):
-    M, N, K = 256, 384, 512
-    g = torch.Generator(device=cuda)
-    g.manual_seed(2)
-    a = torch.randn(M, K, generator=g, device=cuda).to(dtype)
-    b = torch.randn(K, N, generator=g, device=cuda).to(dtype)
+def _mm_operands(shape, dtype, device, seed=2):
+    M, N, K = shape
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    a = torch.randn(M, K, generator=g, device=device).to(dtype)
+    b = torch.randn(K, N, generator=g, device=device).to(dtype)
+    return a, b
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+# bf16 (wgmma kernel): at (256, 384, 512) only bn = 128 divides N; K = 64
+# is a single step (K = bk); K = 192 is 3 steps, fewer than either ring's
+# stages (4 for bn = 256, 7 for bn = 128).  Every bf16 case is also held
+# to rel L2 <= 1e-2: a dropped stage of 64 of K's terms moves it by
+# about sqrt(64 / K), a transposed or mis-swizzled B by order 1.
+MM_REL_L2 = 1e-2
+
+
+@pytest.mark.parametrize("dtype,tol,shape", [
+    (torch.float32, 2e-3, (256, 384, 512)),
+    (torch.bfloat16, 5e-2, (256, 384, 512)),
+    (torch.bfloat16, 5e-2, (256, 512, 64)),
+    (torch.bfloat16, 5e-2, (384, 512, 192))])
+def test_matmul_kernel_every_tile_close_to_plain_version(cuda, dtype, tol,
+                                                         shape):
+    M, N, K = shape
+    a, b = _mm_operands(shape, dtype, cuda)
     want = matmul_ref(a, b).float()
-    for cfg in tuning_space(M, N, K, dtype_bytes=a.element_size()):
+    space = list(tuning_space(M, N, K, dtype_bytes=a.element_size()))
+    assert space
+    for cfg in space:
         before = matmul_kernel.launches
         got = matmul_tuned(a, b, **cfg)
         assert matmul_kernel.launches == before + 1
-        assert got.dtype == dtype
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (M, N)
         torch.testing.assert_close(got.float(), want, rtol=tol,
                                    atol=tol * K ** 0.5, msg=str(cfg))
+        if dtype == torch.bfloat16:
+            assert _rel_l2(got, want) <= MM_REL_L2, cfg
+
+
+@pytest.mark.parametrize("bn", [128, 256])
+def test_matmul_kernel_identity_products_are_exact(cuda, bn):
+    """I . B == B and A . I == A bit for bit: every product term is a
+    single bf16 value times one, so any transposed, shifted or
+    mis-swizzled element of either operand's tile shows."""
+
+    K = 512
+    g = torch.Generator(device=cuda)
+    g.manual_seed(bn)
+    eye = torch.eye(K, device=cuda).to(torch.bfloat16)
+    b = torch.randn(K, bn, generator=g, device=cuda).to(torch.bfloat16)
+    a = torch.randn(128, K, generator=g, device=cuda).to(torch.bfloat16)
+    tile = {"bm": 128, "bn": bn, "bk": 64}
+    assert torch.equal(matmul_tuned(eye[:128].contiguous(), b, **tile),
+                       b[:128])
+    assert torch.equal(matmul_tuned(a, eye[:, :bn].contiguous(), **tile),
+                       a[:, :bn])
+
+
+def test_matmul_kernel_large_non_square_bf16(cuda):
+    """Both bf16 tiles at (2048, 1536, 4096): 64 k-steps, several rounds
+    of each ring, 16 x 12 or 16 x 6 blocks, held to rel L2 <= 1e-2."""
+
+    shape = (2048, 1536, 4096)
+    a, b = _mm_operands(shape, torch.bfloat16, cuda, seed=4)
+    want = matmul_ref(a, b).float()
+    space = list(tuning_space(*shape, dtype_bytes=2))
+    assert {c["bn"] for c in space} == {128, 256}
+    for cfg in space:
+        got = matmul_tuned(a, b, **cfg)
+        torch.cuda.synchronize()
+        assert _rel_l2(got, want) <= MM_REL_L2, cfg
+        torch.testing.assert_close(got.float(), want, rtol=5e-2,
+                                   atol=5e-2 * shape[2] ** 0.5,
+                                   msg=str(cfg))
+
+
+def test_matmul_kernel_raises_on_what_tma_cannot_take(cuda):
+    a, b = _mm_operands((256, 256, 256), torch.bfloat16, cuda)
+    tile = {"bm": 128, "bn": 128, "bk": 64}
+    flat = torch.zeros(256 * 256 + 8, dtype=torch.bfloat16, device=cuda)
+    before = matmul_kernel.launches
+    with pytest.raises(ValueError, match="not contiguous"):
+        matmul_tuned(a.t(), b, **tile)
+    with pytest.raises(ValueError, match="not contiguous"):
+        matmul_tuned(a, torch.cat([b, b], 1)[:, :256], **tile)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        matmul_tuned(flat[1:1 + 256 * 256].view(256, 256), b, **tile)
+    with pytest.raises(ValueError, match="row stride"):
+        matmul_tuned(a[:, :66].contiguous(), b[:66].contiguous(), **tile)
+    with pytest.raises(ValueError, match="not compiled"):
+        matmul_tuned(a, b, bm=64, bn=128, bk=64)
+    assert matmul_kernel.launches == before
 
 
 def test_measure_engine_on_the_card_then_cache_hit(cuda):

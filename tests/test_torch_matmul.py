@@ -3,7 +3,11 @@
 ``repro``'s ``matmul_tuned(..., bm=bn=bk=128)`` (the Pallas kernel in
 interpret mode) against ``repro_torch``'s ``matmul_tuned`` on CPU
 tensors (the plain version: f32 product cast to the inputs' dtype), at
-the shapes and tolerances of the JAX package's own kernel tests.
+the shapes and tolerances of the JAX package's own kernel tests; and the
+parts of the port's kernel module that run without a card: the bf16
+(wgmma) and f32 lattices, their shared-memory sizes, the cost model, the
+operand checks the wrapper makes before any launch, and the build's
+source hash.
 """
 
 import numpy as np
@@ -14,11 +18,20 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.matmul_tuned.ops import matmul_tuned as jax_matmul_tuned  # noqa: E402
 from repro_torch.interop import from_numpy, to_numpy  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.matmul_tuned.kernel import (BF16_STAGES,  # noqa: E402
+                                                     TILES)
 from repro_torch.kernels.matmul_tuned.ops import (MatmulTunable,  # noqa: E402
-                                                  matmul_tuned, tuning_space)
+                                                  matmul_tuned, smem_bytes,
+                                                  tuning_space)
 from repro_torch.tune import TuningCache, set_default_cache, tune  # noqa: E402
 
 SHAPES = [(128, 128, 128), (256, 384, 512), (512, 128, 256)]
+# every shape a bf16 product takes in the tests on the card and in
+# chip_smoke.py (its plan and phase 3c): each must have a tile
+GPU_SHAPES = [(256, 384, 512), (256, 512, 64), (384, 512, 192),
+              (2048, 1536, 4096), (8192, 8192, 8192), (8192, 8192, 1024)]
+SMEM_LIMIT = 227 * 1024
 
 
 @pytest.fixture(autouse=True)
@@ -52,13 +65,19 @@ def test_matmul_matches_jax(dtype, tol, shape):
                                atol=tol * K ** 0.5)
 
 
-def test_every_tile_of_the_lattice_gives_the_same_product():
-    a, b = _operands((256, 384, 512), jnp.float32)
+# f32: the FMA kernel's 2 x 2 x 2 tiles; bf16: the wgmma kernel's bn in
+# {128, 256} (bm = 128, bk = 64), both dividing N = 512
+@pytest.mark.parametrize("dtype,shape,tiles", [
+    (jnp.float32, (256, 384, 512), 8),
+    (jnp.bfloat16, (256, 512, 512), 2)])
+def test_every_tile_of_the_lattice_gives_the_same_product(dtype, shape,
+                                                          tiles):
+    a, b = _operands(shape, dtype)
     ta = from_numpy(np.asarray(a), "cpu")
     tb = from_numpy(np.asarray(b), "cpu")
-    space = tuning_space(256, 384, 512, dtype_bytes=4)
+    space = tuning_space(*shape, dtype_bytes=ta.element_size())
     outs = [matmul_tuned(ta, tb, **cfg) for cfg in space]
-    assert len(outs) == 8
+    assert len(outs) == tiles
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
 
@@ -73,12 +92,121 @@ def test_undivisible_dims_and_uncompiled_tiles_raise():
                      bm=128, bn=128, bk=128)
     with pytest.raises(ValueError, match="no compiled tile"):
         tuning_space(96, 64, 64)
+    # bf16 compiles bm = 128 and bk = 64 only
+    a16 = torch.ones(128, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not compiled"):
+        matmul_tuned(a16, a16, bm=64, bn=128, bk=64)
+    with pytest.raises(ValueError, match="not compiled"):
+        matmul_tuned(a16, a16, bm=128, bn=128, bk=32)
+    with pytest.raises(ValueError, match="no compiled tile for bm"):
+        tuning_space(64, 128, 64, dtype_bytes=2)
+    with pytest.raises(ValueError, match="no compiled tile for bk"):
+        tuning_space(128, 128, 96, dtype_bytes=2)
 
 
-def test_cost_model_prefers_large_tiles_on_the_h100():
-    res = tune(MatmulTunable(8192, 8192, 8192), engine="grid", cache=None)
-    assert res.best_config == {"bm": 128, "bn": 128, "bk": 64}
+# bf16: the 4-stage 128 x 256 x 64 tile (it fills the SMs in 16 waves of
+# twice the work of the 128 x 128 tile's 32); f32: the largest FMA tile
+@pytest.mark.parametrize("dtype_bytes,pick", [
+    (2, {"bm": 128, "bn": 256, "bk": 64}),
+    (4, {"bm": 128, "bn": 128, "bk": 64})])
+def test_cost_model_prefers_large_tiles_on_the_h100(dtype_bytes, pick):
+    res = tune(MatmulTunable(8192, 8192, 8192, dtype_bytes=dtype_bytes),
+               engine="grid", cache=None)
+    assert res.best_config == pick
     # the f32 product is priced at the FMA rate, well above the bf16 one
-    f32 = MatmulTunable(8192, 8192, 8192, dtype_bytes=4)
-    assert f32.cost(res.best_config) > \
-        MatmulTunable(8192, 8192, 8192).cost(res.best_config)
+    both = {"bm": 128, "bn": 128, "bk": 64}
+    assert MatmulTunable(8192, 8192, 8192, dtype_bytes=4).cost(both) > \
+        MatmulTunable(8192, 8192, 8192).cost(both)
+
+
+@pytest.mark.parametrize("shape", SHAPES + GPU_SHAPES)
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
+def test_lattice_has_a_tile_for_every_shape_and_each_fits(shape,
+                                                          dtype_bytes):
+    space = list(tuning_space(*shape, dtype_bytes=dtype_bytes))
+    assert space
+    for cfg in space:
+        assert all(v in TILES[dtype_bytes][k] for k, v in cfg.items())
+        assert smem_bytes(cfg, dtype_bytes) <= SMEM_LIMIT
+
+
+def test_bf16_smem_mirrors_the_ring():
+    """1024 bytes of alignment slack, the stages of (128 x 64) A and
+    (64 x bn) B bf16 tiles, two 8-byte barriers per stage; each stage a
+    multiple of the 1024-byte swizzle atom."""
+
+    for bn, stages in BF16_STAGES.items():
+        cfg = {"bm": 128, "bn": bn, "bk": 64}
+        stage = (128 * 64 + 64 * bn) * 2
+        assert stage % 1024 == 0
+        assert smem_bytes(cfg, 2) == 1024 + stages * stage + 16 * stages
+        # the deepest ring that fits: one more stage would not
+        assert smem_bytes(cfg, 2) + stage + 16 > SMEM_LIMIT
+    assert smem_bytes({"bm": 128, "bn": 256, "bk": 64}, 2) == 197696
+
+
+def _bf16(*shape):
+    return torch.ones(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_operands_tma_cannot_take_raise(dtype):
+    """Checked before the device is looked at, so they raise on the CPU
+    as on the card."""
+
+    ones = lambda *s: torch.ones(*s, dtype=dtype)
+    tile = {"bm": 128, "bn": 128, "bk": 64}
+    b = ones(128, 128)
+    # non-contiguous: a transposed view, a column slice with padded rows
+    with pytest.raises(ValueError, match="not contiguous"):
+        matmul_tuned(ones(128, 128).t(), b, **tile)
+    with pytest.raises(ValueError, match="not contiguous"):
+        matmul_tuned(ones(128, 192)[:, :128], b, **tile)
+    with pytest.raises(ValueError, match="not contiguous"):
+        matmul_tuned(ones(128, 128), ones(128, 256)[:, ::2], **tile)
+    # a row stride that is not a multiple of 16 bytes (K = 66)
+    with pytest.raises(ValueError, match="row stride"):
+        matmul_tuned(ones(128, 66), ones(66, 128), **tile)
+    # a base that is not 16-byte aligned
+    flat = torch.ones(128 * 128 + 1, dtype=dtype)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        matmul_tuned(flat[1:].view(128, 128), b, **tile)
+    # what passes the checks runs
+    got = matmul_tuned(ones(128, 128), b, **tile)
+    assert got.shape == (128, 128) and bool((got == 128).all())
+
+
+def test_source_hash_digests_headers(tmp_path):
+    """An edit to a header under csrc/ must not reuse a stale library."""
+
+    for src in _build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    assert (tmp_path / "sm90.cuh").is_file()
+    before = _build.source_hash(tmp_path)
+    assert before == _build.source_hash()
+    header = tmp_path / "sm90.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    edited = _build.source_hash(tmp_path)
+    assert edited != before
+    cu = tmp_path / "matmul_tuned.cu"
+    cu.write_bytes(cu.read_bytes() + b"\n")
+    assert _build.source_hash(tmp_path) not in (before, edited)
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    log = [
+        "ptxas info    : Compiling entry function '_ZN2wg7mm_bf16ILi256EEEv' "
+        "for 'sm_90a'",
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z6mm_f32ILi64EEv' for "
+        "'sm_90a'",
+        "8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Used 255 registers, 384 bytes cmem[0]"]
+    usage = _build.ptxas_usage(log)
+    assert usage == {
+        "_ZN2wg7mm_bf16ILi256EEEv": {"registers": 168, "spill_stores": 0,
+                                     "spill_loads": 0},
+        "_Z6mm_f32ILi64EEv": {"registers": 255, "spill_stores": 12,
+                              "spill_loads": 16}}
