@@ -11,7 +11,8 @@ Each phase prints one JSON line:
 3. ``kernel`` — each kernel against its plain PyTorch version at full size
    (error, kernel / plain / library time, bound), one line per case;
    3c, the matmul, also gives each kernel's registers and spills from
-   ptxas; 3d is flash attention at qwen1.5-4b's shape;
+   ptxas; 3d is flash attention at qwen1.5-4b's shape, with the registers,
+   spills and ptxas warnings of every bf16 instantiation;
 4. ``tune``   — the tuning path: a TuningPlan (the §7 abstract platform
    with the sweep engine, the four kernel tunables with the measure
    engine) into a temporary cache, a second run that must hit, and
@@ -525,6 +526,12 @@ def main() -> int:
 
     # 3d. flash attention at qwen1.5-4b's shape, windowed, non-causal and
     # f32 (library: scaled_dot_product_attention, timed only as a yardstick)
+    fa_lines = info.ptxas.get("flash_attention.cu", [])
+    fa_usage = _build.ptxas_usage(fa_lines)
+    emit("kernel", name="flash_attention", case="ptxas-bf16",
+         usage={k: u for k, u in fa_usage.items() if "fa_bf16" in k},
+         warnings=[ln for ln in fa_lines
+                   if "warning" in ln or "Performance" in ln])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for dname, B, H, S, D, causal, window in FLASH_CASES:
         dtype = getattr(torch, dname)
@@ -557,8 +564,12 @@ def main() -> int:
         peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         bb, by = bound_ms(4 * B * H * S * D * q.element_size(),
                           4 * B * H * pairs * D, peak)
+        entry = (f"fa_bf16ILi{cfg['block_k']}ELi{D}E" if dname == "bfloat16"
+                 else f"fa_f32ILi{cfg['block_q']}ELi{cfg['block_k']}ELi{D}E")
         row = {"case": f"{dname}-S{S}-D{D}-causal={causal}-window={window}",
                "config": cfg, "max_abs_err": float(diff.max()),
+               "ptxas": next((u for n_, u in fa_usage.items() if entry in n_),
+                             None),
                "rel_l2": rel_l2, "tol": [atol, rtol, FLASH_REL_L2],
                "ms": time_ms(run, 10),
                "plain_ms": time_ms(plain, 3, warmup=1),

@@ -1,8 +1,8 @@
 """Wrapper of the hand-written CUDA flash attention
 (``csrc/flash_attention.cu``).
 
-A CUDA tensor launches the kernel (mma.sync tensor-core path for bf16,
-FMA path for f32) and raises if the head dim or tile was not compiled or
+A CUDA tensor launches the kernel (a TMA + ``wgmma`` pipeline for bf16,
+the FMA path for f32) and raises if the head dim or tile was not compiled or
 the launch fails; a CPU tensor takes the plain version,
 :func:`~.ref.attention_ref`.  ``flash_kernel.launches`` counts kernel
 launches.
@@ -15,12 +15,27 @@ import torch
 from .. import _build
 from .ref import attention_ref
 
-# the (block_q, block_k) tiles and head dims compiled as template
-# instantiations
-BLOCK_Q = (64, 128)
-BLOCK_K = (32, 64, 128)
+# the (block_q, block_k) tiles compiled as template instantiations, per
+# element size: bf16 has block_q = 128 (two consumer warpgroups of 64 rows)
+# and block_k in {64, 128} (wgmma widths); f32 is the FMA kernel's grid.
+# Both compile the head dims HEAD_DIMS.
+TILES = {
+    2: {"block_q": (128,), "block_k": (64, 128)},
+    4: {"block_q": (64, 128), "block_k": (32, 64, 128)},
+}
 HEAD_DIMS = (64, 128)
+# the most dynamic shared memory a block may have on Hopper (227 KB)
+SMEM_LIMIT = 232448
 _DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2}
+
+
+def bf16_stages(block_k: int, D: int) -> int:
+    """Depth of the bf16 kernel's K/V ring: the deepest that fits 227 KB
+    beside 1024 bytes of alignment slack, the (128, D) Q tile and the
+    barriers (csrc/flash_attention.cu, ``wg::Tile``)."""
+
+    q_bytes, stage = 128 * D * 2, 2 * block_k * D * 2
+    return (SMEM_LIMIT - 1024 - q_bytes - 8) // (stage + 16)
 
 
 def flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -52,9 +67,11 @@ def flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"unsupported device {q.device}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} is not compiled; D in {HEAD_DIMS}")
-    if block_q not in BLOCK_Q or block_k not in BLOCK_K:
-        raise ValueError(f"tile ({block_q}, {block_k}) is not compiled; "
-                         f"block_q in {BLOCK_Q}, block_k in {BLOCK_K}")
+    tiles = TILES[q.element_size()]
+    if block_q not in tiles["block_q"] or block_k not in tiles["block_k"]:
+        raise ValueError(f"tile ({block_q}, {block_k}) is not compiled for "
+                         f"{q.dtype}; block_q in {tiles['block_q']}, "
+                         f"block_k in {tiles['block_k']}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("q, k, v must be 16-byte aligned")
@@ -75,4 +92,4 @@ def flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_kernel.launches = 0
 
-__all__ = ["flash_kernel", "BLOCK_Q", "BLOCK_K", "HEAD_DIMS"]
+__all__ = ["flash_kernel", "TILES", "HEAD_DIMS", "SMEM_LIMIT", "bf16_stages"]

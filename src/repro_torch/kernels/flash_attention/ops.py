@@ -6,15 +6,19 @@ resolves (block_q, block_k) through ``@autotune``: the
 :class:`FlashAttentionTunable` built from the call's shapes, causality
 and window is tuned on first sight and served from the port's tuning
 cache afterwards.  The lattice is the set of tiles compiled into the
-kernel that divide S, each within the 227 KB of shared memory a block
-may use and 1024 threads.  The cost model prices the H100: the flops of
-the visited (causal / window) blocks at 989 TFLOP/s (bf16 tensor cores)
-or 67 TFLOP/s (f32 FMA) against K/V re-streamed once per q-block at
-3.35 TB/s, plus a per-tile cost of each block's load-and-sync round.
+kernel for the dtype that divide S, each within the 227 KB of shared
+memory a block may use and 1024 threads.  The cost model prices the
+H100: for bf16, blocks of one q-block each, dealt out in launch order to
+the 132 SMs (one block per SM), each block its relevant k-blocks and a
+fixed cost at rates fitted on the card; for f32, the flops of the
+visited blocks at 67 TFLOP/s (FMA) against K/V re-streamed once per
+q-block at 3.35 TB/s, plus a per-tile cost of each block's load-and-sync
+round.
 """
 
 from __future__ import annotations
 
+import heapq
 from dataclasses import dataclass
 from typing import Any, ClassVar, Mapping
 
@@ -22,53 +26,79 @@ import torch
 
 from ...core.search_space import Param, SearchSpace
 from ...tune import autotune
-from ..common import (BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S, LAUNCH_US, SMS,
+from ..common import (F32_FLOPS, HBM_BYTES_PER_S, LAUNCH_US, SMS,
                       as_device_tensor, generator, resolve_device, time_fn,
                       tunable_device)
-from .kernel import BLOCK_K, BLOCK_Q, flash_kernel
+from .kernel import SMEM_LIMIT, TILES, bf16_stages, flash_kernel
 from .ref import attention_ref
 
-_SMEM_LIMIT = 227 * 1024
 _MAX_THREADS = 1024
-# modeling assumption: one block's staged K/V tile + two barriers
+# f32 (FMA kernel), a modeling assumption: one block's staged K/V tile +
+# two barriers
 _STEP_US = 0.3
+# bf16 (wgmma kernel), per block_k at D = 128 (other head dims in
+# proportion to D): the time one block takes for a k-block, and its fixed
+# cost (Q's load, the ring's fill, the epilogue), fitted on an NVIDIA H100
+# 80GB HBM3 at a 700 W power limit to each tile's median time at
+# (1, 20, 4096, 128), causal and not (tools/flash_report.py, "fit")
+_WG_STEP_US = {64: 1.021, 128: 2.443}
+_WG_BLOCK_US = {64: 4.49, 128: 2.92}
 
 
 def smem_bytes(cfg: Mapping[str, Any], D: int, dtype_bytes: int) -> int:
     """Dynamic shared memory of one block (see
-    ``csrc/flash_attention.cu``): bf16 stages K and V^T with 8 elements of
-    row padding, f32 stages K and V as they are."""
+    ``csrc/flash_attention.cu``)."""
 
-    bk = cfg["block_k"]
+    bq, bk = cfg["block_q"], cfg["block_k"]
     if dtype_bytes == 2:
-        return (bk * (D + 8) + D * (bk + 8)) * 2
+        # 1024 bytes to align Q and the ring for the 128-byte swizzle, the
+        # Q tile, the stages of K and V tiles, Q's barrier and a full and
+        # an empty barrier per stage
+        stages = bf16_stages(bk, D)
+        return 1024 + bq * D * 2 + stages * 2 * bk * D * 2 + \
+            (1 + 2 * stages) * 8
     return 2 * bk * D * 4
 
 
 def threads(cfg: Mapping[str, Any], dtype_bytes: int) -> int:
-    """Threads of one block: a warp per 16 rows (bf16), four threads per
-    row (f32)."""
+    """Threads of one block: two consumer warpgroups and a producer warp
+    (bf16), four threads per row (f32)."""
 
-    bq = cfg["block_q"]
-    return bq * 2 if dtype_bytes == 2 else bq * 4
+    return 288 if dtype_bytes == 2 else cfg["block_q"] * 4
 
 
 def tuning_space(S: int, D: int, dtype_bytes: int = 2) -> SearchSpace:
-    """Compiled (block_q, block_k) tiles that divide S and fit a block
-    (the head dim is not searched: a CUDA call with one that was not
-    compiled raises in the kernel's wrapper)."""
+    """Compiled (block_q, block_k) tiles for the dtype that divide S and
+    fit a block (the head dim is not searched: a CUDA call with one that
+    was not compiled raises in the kernel's wrapper)."""
 
-    vals = {"block_q": tuple(b for b in BLOCK_Q if S % b == 0),
-            "block_k": tuple(b for b in BLOCK_K if S % b == 0)}
+    tiles = TILES[dtype_bytes]
+    vals = {name: tuple(b for b in tiles[name] if S % b == 0)
+            for name in ("block_q", "block_k")}
     empty = [name for name, v in vals.items() if not v]
     if empty:
         raise ValueError(f"S={S} has no compiled tile for {', '.join(empty)} "
-                         f"(block_q in {BLOCK_Q}, block_k in {BLOCK_K})")
+                         f"(block_q in {tiles['block_q']}, block_k in "
+                         f"{tiles['block_k']})")
     space = SearchSpace(params=[Param(k, v) for k, v in vals.items()])
     space.constraints.append(
-        lambda c: smem_bytes(c, D, dtype_bytes) <= _SMEM_LIMIT
+        lambda c: smem_bytes(c, D, dtype_bytes) <= SMEM_LIMIT
         and threads(c, dtype_bytes) <= _MAX_THREADS)
     return space
+
+
+def k_blocks(q_lo: int, q_hi: int, S: int, bk: int, causal: bool = True,
+             window: int | None = None) -> tuple[int, int]:
+    """The k-blocks holding a key some row of [q_lo, q_hi] sees: the
+    first one and how many (the kernel's ``Mask::k_blocks``).  A causal
+    window of 0 leaves every row without a key."""
+
+    lo = 0 if window is None else max(0, q_lo - window + 1)
+    hi = q_hi if causal else S - 1
+    first = lo // bk
+    if (causal and window is not None and window < 1) or lo > hi:
+        return first, 0
+    return first, hi // bk - first + 1
 
 
 def visited_blocks(S: int, bq: int, bk: int, causal: bool = True,
@@ -76,18 +106,8 @@ def visited_blocks(S: int, bq: int, bk: int, causal: bool = True,
     """(q-block, k-block) pairs the kernel computes: a k-block is visited
     iff some (q, k) pair of the two blocks is inside the mask."""
 
-    nq, nk = S // bq, S // bk
-    visited = 0
-    for i in range(nq):
-        q_lo, q_hi = i * bq, (i + 1) * bq - 1
-        for j in range(nk):
-            k_lo, k_hi = j * bk, (j + 1) * bk - 1
-            if causal and k_lo > q_hi:
-                continue
-            if window is not None and k_hi < q_lo - window + 1:
-                continue
-            visited += 1
-    return visited
+    return sum(k_blocks(q_lo, q_lo + bq - 1, S, bk, causal, window)[1]
+               for q_lo in range(0, S, bq))
 
 
 def visible_pairs(S: int, causal: bool = True,
@@ -102,15 +122,32 @@ def visible_pairs(S: int, causal: bool = True,
     return total
 
 
+def wgmma_time_us(S: int, D: int, BH: int, bk: int, causal: bool = True,
+                  window: int | None = None, bq: int = 128) -> float:
+    """The bf16 kernel's modeled time without the launch: its blocks, the
+    latest q-block of every head first as the grid launches them, each
+    to the SM that frees first (one block per SM)."""
+
+    step = _WG_STEP_US[bk] * D / 128
+    fixed = _WG_BLOCK_US[bk] * D / 128
+    sms = [0.0] * SMS
+    for q_lo in range(S - bq, -1, -bq):
+        n = k_blocks(q_lo, q_lo + bq - 1, S, bk, causal, window)[1]
+        for _ in range(BH):
+            heapq.heapreplace(sms, sms[0] + n * step + fixed)
+    return max(sms)
+
+
 def cost_model(cfg: Mapping[str, Any], *, S: int, D: int, BH: int,
                causal: bool = True, window: int | None = None,
                dtype_bytes: int = 2) -> float:
     """Modeled microseconds for the whole call on an H100."""
 
     bq, bk = cfg["block_q"], cfg["block_k"]
+    if dtype_bytes == 2:
+        return wgmma_time_us(S, D, BH, bk, causal, window, bq) + LAUNCH_US
     visited = visited_blocks(S, bq, bk, causal, window)
-    peak = BF16_FLOPS if dtype_bytes == 2 else F32_FLOPS
-    compute_us = 4 * BH * visited * bq * bk * D / peak * 1e6
+    compute_us = 4 * BH * visited * bq * bk * D / F32_FLOPS * 1e6
     # K and V re-streamed once per visited tile, q read and o written once
     streamed = (BH * visited * bk * D * 2 + BH * S * D * 2) * dtype_bytes
     mem_us = streamed / HBM_BYTES_PER_S * 1e6
@@ -197,4 +234,5 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 __all__ = ["flash_attention", "FlashAttentionTunable", "tuning_space",
            "cost_model", "attention_ref", "flash_kernel", "smem_bytes",
-           "visited_blocks", "visible_pairs"]
+           "threads", "k_blocks", "visited_blocks", "visible_pairs",
+           "wgmma_time_us"]

@@ -22,10 +22,10 @@ from repro.kernels.flash_attention.ops import \
 from repro_torch.interop import from_numpy, to_numpy  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    BLOCK_K, BLOCK_Q, flash_kernel)
+    SMEM_LIMIT, TILES, bf16_stages, flash_kernel)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    FlashAttentionTunable, attention_ref, flash_attention, smem_bytes,
-    tuning_space, visible_pairs, visited_blocks)
+    FlashAttentionTunable, attention_ref, flash_attention, k_blocks,
+    smem_bytes, threads, tuning_space, visible_pairs, visited_blocks)
 from repro_torch.tune import (TuningCache, available_tunables,  # noqa: E402
                               set_default_cache, tune)
 
@@ -117,12 +117,19 @@ def test_tuning_space_fits_a_hopper_block_and_no_tpu_constant():
             space = list(tuning_space(4096, D, dtype_bytes))
             assert space
             for cfg in space:
-                assert cfg["block_q"] in BLOCK_Q
-                assert cfg["block_k"] in BLOCK_K
+                assert cfg["block_q"] in TILES[dtype_bytes]["block_q"]
+                assert cfg["block_k"] in TILES[dtype_bytes]["block_k"]
                 assert smem_bytes(cfg, D, dtype_bytes) <= 227 * 1024
-    # tiles must divide S: S = 96 admits block 32 only for block_k
+                assert threads(cfg, dtype_bytes) <= 1024
+    # the bf16 lattice is block_q = 128 x block_k in {64, 128}
+    assert {(c["block_q"], c["block_k"]) for c in tuning_space(4096, 128)} \
+        == {(128, 64), (128, 128)}
+    # tiles must divide S: S = 96 admits block 32 only for block_k (f32);
+    # bf16 has no tile for S = 64 * 3
     with pytest.raises(ValueError, match="block_q"):
-        tuning_space(96, 64)
+        tuning_space(96, 64, dtype_bytes=4)
+    with pytest.raises(ValueError, match="block_q"):
+        tuning_space(192, 128)
     # the reference's TPU numbers (64 MiB VMEM, 197 TFLOP/s, 819 GB/s)
     # are not the port's
     src = inspect.getsource(ops)
@@ -130,16 +137,82 @@ def test_tuning_space_fits_a_hopper_block_and_no_tpu_constant():
         assert tpu not in src, tpu
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bk", [64, 128])
+def test_every_bf16_tile_fits_a_block_at_its_ring_depth(bk, D):
+    """1024 bytes of alignment slack, the (128, D) Q tile, the stages of
+    (bk, D) K and V tiles and 8-byte barriers (Q's, and a full and an
+    empty one per stage) fit 232,448 bytes; one more stage would not.
+    Every tile is a multiple of the 1024-byte swizzle atom."""
+
+    cfg = {"block_q": 128, "block_k": bk}
+    stages = bf16_stages(bk, D)
+    stage = 2 * bk * D * 2
+    assert stage % 1024 == 0 and 128 * D * 2 % 1024 == 0
+    assert stages >= 3
+    assert smem_bytes(cfg, D, 2) == \
+        1024 + 128 * D * 2 + stages * stage + (1 + 2 * stages) * 8
+    assert smem_bytes(cfg, D, 2) <= SMEM_LIMIT == 232448
+    assert smem_bytes(cfg, D, 2) + stage + 16 > SMEM_LIMIT
+    assert threads(cfg, 2) == 288
+
+
+def test_bf16_ring_depths():
+    # qwen1.5-4b's tile: 32 KB of Q + 3 x 64 KB of K/V, about 230.5 KB
+    assert bf16_stages(128, 128) == 3
+    assert smem_bytes({"block_q": 128, "block_k": 128}, 128, 2) == 230456
+    assert {(bk, D): bf16_stages(bk, D) for bk in (64, 128)
+            for D in (64, 128)} == {(64, 64): 13, (64, 128): 6,
+                                    (128, 64): 6, (128, 128): 3}
+
+
+@pytest.mark.parametrize("S,bq,bk", [(256, 64, 64), (512, 128, 64),
+                                     (512, 128, 128), (384, 128, 64)])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 1), (True, 70),
+                                           (True, 0), (False, 0),
+                                           (False, 100)])
+def test_k_blocks_are_exactly_the_blocks_with_a_visible_pair(S, bq, bk,
+                                                             causal, window):
+    """The kernel's k-loop range (first block and count, from the mask)
+    against a brute-force search of the blocks holding a visible pair."""
+
+    qi = np.arange(S)[:, None]
+    ki = np.arange(S)[None, :]
+    vis = np.ones((S, S), bool)
+    if causal:
+        vis &= ki <= qi
+    if window is not None:
+        vis &= ki >= qi - window + 1
+    for q_lo in range(0, S, bq):
+        rows = vis[q_lo:q_lo + bq]
+        want = [kb for kb in range(S // bk)
+                if rows[:, kb * bk:(kb + 1) * bk].any()]
+        first, count = k_blocks(q_lo, q_lo + bq - 1, S, bk, causal, window)
+        assert list(range(first, first + count)) == want, (q_lo, first,
+                                                           count)
+
+
 def test_cost_model_counts_the_visited_blocks():
-    # causal: the diagonal and below; window: a band
+    # causal: the diagonal and below; window: a band; a causal window of 0
+    # leaves no row a key, so no block is visited
     assert visited_blocks(256, 64, 64) == 10
     assert visited_blocks(256, 64, 64, causal=False) == 16
     assert visited_blocks(256, 64, 64, window=64) == 7
+    assert visited_blocks(256, 64, 64, window=0) == 0
     assert visible_pairs(4, causal=True) == 10
     assert visible_pairs(4, causal=True, window=2) == 7
     t = FlashAttentionTunable(S=4096, D=128, BH=20)
     costs = {tuple(c.values()): t.cost(c) for c in t.space()}
     assert all(c > 0 for c in costs.values())
+    # bf16: the causal model shape costs about half the non-causal one,
+    # and so does a window of 1024 (9 k-blocks a q-block, against 16.5 on
+    # average under the causal mask alone)
+    cfg = {"block_q": 128, "block_k": 128}
+    full = FlashAttentionTunable(S=4096, D=128, BH=20, causal=False)
+    band = FlashAttentionTunable(S=4096, D=128, BH=20, window=1024)
+    assert 0.4 < t.cost(cfg) / full.cost(cfg) < 0.6
+    assert 0.4 < band.cost(cfg) / t.cost(cfg) < 0.6
     # the causal work at qwen1.5-4b's shape, 4 * BH * S^2/2 * D ~ 86 GFLOP
     assert 4 * 20 * visible_pairs(4096) * 128 == pytest.approx(85.92e9,
                                                                rel=1e-3)

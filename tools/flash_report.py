@@ -1,0 +1,198 @@
+#!/usr/bin/env python3
+"""What the bf16 ``flash_attention`` kernel compiles to and how fast each
+of its tiles runs, on one CUDA card.
+
+    PYTHONPATH=src python3 tools/flash_report.py [--out report.json]
+
+Prints one JSON line per part and writes them all to ``--out``
+(default ``build/flash_report.json`` at the checkout's root):
+
+1. ``ptxas``  — registers, spills and warnings (C7515: wgmma serialised
+   around an accumulator touched in flight; C7512: serialised for lack of
+   registers) of every bf16 instantiation in ``csrc/flash_attention.cu``;
+2. ``sass``   — per bf16 kernel, the count of each instruction that shows
+   the design (HGMMA: wgmma; UTMALDG: TMA loads; SYNCS: mbarriers; BAR:
+   named barriers; MUFU.EX2: the softmax's 2^x), from ``cuobjdump -sass``
+   of the built library, with one sample line of each;
+3. ``tile``   — each bf16 tile at qwen1.5-4b's shape (1, 20, 4096, 128),
+   causal and not: its time, TFLOP/s of the visible pairs, rel L2
+   against the plain version, the cost model's time and
+   ``scaled_dot_product_attention``'s time on the same inputs.  Times
+   are CUDA events over bursts of back-to-back calls, the tiles and the
+   library call in rotated turns, ROUNDS bursts each: the median and the
+   least (the card slows its clock under sustained load, so a burst's
+   place in the run moves it);
+4. ``fit``    — per block_k, the time of one block's k-block and its fixed
+   cost, solved from the two masks' medians with the blocks spread evenly
+   over the SMs (the cost model's ``_WG_STEP_US`` and ``_WG_BLOCK_US``).
+
+The card's name and power limit come first.  Exits non-zero without a
+card, or if a tile's rel L2 exceeds 1e-2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+SHAPE = (1, 20, 4096, 128)
+REL_L2 = 1e-2
+ROUNDS = 7
+MARKERS = ("HGMMA", "UTMALDG", "SYNCS", "BAR.SYNC", "BAR.ARV", "STG.E.128",
+           "MUFU.EX2")
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sass_counts(so: Path) -> dict[str, dict]:
+    """Instruction counts of each bf16 flash kernel in ``cuobjdump -sass``."""
+
+    from repro_torch.kernels._build import nvcc_path
+    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(so)], check=True,
+                          capture_output=True, text=True).stdout
+    out: dict[str, dict] = {}
+    fn = None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1) if "fa_bf16" in m.group(1) else None
+            if fn:
+                out[fn] = {"counts": dict.fromkeys(MARKERS, 0), "sample": {}}
+            continue
+        if fn is None:
+            continue
+        instr = re.search(r"\*/\s*(.*?;)", ln)
+        if instr is None:
+            continue
+        for mk in MARKERS:
+            if mk in instr.group(1):
+                out[fn]["counts"][mk] += 1
+                out[fn]["sample"].setdefault(
+                    mk, re.sub(r"\s+", " ", instr.group(1)))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=str(ROOT / "build" / "flash_report.json"))
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_report: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.common import SMS
+    from repro_torch.kernels.flash_attention.kernel import TILES
+    from repro_torch.kernels.flash_attention.ops import (attention_ref,
+                                                         cost_model,
+                                                         flash_attention,
+                                                         visible_pairs,
+                                                         visited_blocks)
+
+    lines: list[dict] = []
+
+    def emit(part: str, **fields) -> None:
+        lines.append({"part": part, **fields})
+        print(json.dumps(lines[-1]), flush=True)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi)
+
+    _build.library()
+    info = _build.build_info()
+    fa = info.ptxas.get("flash_attention.cu", [])
+    usage = {k: v for k, v in _build.ptxas_usage(fa).items()
+             if "fa_bf16" in k}
+    warnings = [ln for ln in fa if "warning" in ln or "Performance" in ln]
+    emit("ptxas", nvcc_s=info.seconds, usage=usage, warnings=warnings,
+         c7515=sum("C7515" in ln for ln in warnings))
+    emit("sass", kernels=sass_counts(info.path))
+
+    B, H, S, D = SHAPE
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    q, k, v = (torch.randn(SHAPE, generator=g, device="cuda"
+                           ).to(torch.bfloat16) for _ in range(3))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bks = TILES[2]["block_k"]
+    times: dict[tuple[int, bool], float] = {}
+    ok = True
+    for causal in (True, False):
+        want = attention_ref(q, k, v, causal=causal).float()
+        rel = {}
+        for bk in bks:
+            got = flash_attention(q, k, v, causal=causal, block_q=128,
+                                  block_k=bk).float()
+            rel[bk] = float((got - want).norm() / want.norm())
+            ok &= rel[bk] <= REL_L2
+        del want, got
+        runs = {"library": lambda: sdpa(q, k, v, is_causal=causal)}
+        for bk in bks:
+            runs[bk] = lambda bk=bk: flash_attention(
+                q, k, v, causal=causal, block_q=128, block_k=bk)
+        names = list(runs)
+        bursts: dict = {n: [] for n in names}
+        for r in range(ROUNDS):
+            for n in names[r % len(names):] + names[:r % len(names)]:
+                bursts[n].append(time_ms(runs[n], iters=10, warmup=2))
+        med = {n: sorted(b)[len(b) // 2] for n, b in bursts.items()}
+        flops = 4 * B * H * visible_pairs(S, causal) * D
+        for bk in bks:
+            times[(bk, causal)] = med[bk]
+            cfg = {"block_q": 128, "block_k": bk}
+            emit("tile", shape=list(SHAPE), causal=causal, config=cfg,
+                 ms=med[bk], least_ms=min(bursts[bk]),
+                 tflops=flops / med[bk] / 1e9, rel_l2=rel[bk],
+                 library_ms=med["library"],
+                 library_least_ms=min(bursts["library"]),
+                 modeled_ms=cost_model(cfg, S=S, D=D, BH=B * H,
+                                       causal=causal) / 1e3)
+
+    # t = (step * k-blocks + fixed * blocks) / SMS, the blocks spread
+    # evenly over the SMs; the two masks give two equations per block_k
+    fits = {}
+    blocks = B * H * S // 128
+    for bk in bks:
+        steps = {c: B * H * visited_blocks(S, 128, bk, c) for c in (True,
+                                                                   False)}
+        t = {c: times[(bk, c)] * 1e3 * SMS for c in (True, False)}
+        step_us = (t[False] - t[True]) / (steps[False] - steps[True])
+        fits[bk] = {"step_us": step_us,
+                    "block_us": (t[True] - step_us * steps[True]) / blocks}
+    emit("fit", per_block_k=fits)
+
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text("".join(json.dumps(ln) + "\n" for ln in lines))
+    if not ok:
+        print(f"flash_report: a tile exceeded rel L2 {REL_L2}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
