@@ -10,7 +10,10 @@ Each phase prints one JSON line:
 2. ``device`` — the card, its capability and its power limit;
 3. ``kernel`` — each kernel against its plain PyTorch version at full size
    (error, kernel / plain / library time, bound), one line per case;
-   3c, the matmul, also gives each kernel's registers and spills from
+   3a, the reduction, adds a view that is not 16-byte aligned and a NaN;
+   3b, the sweep, a lattice that mixes invalid points, and its bound
+   counts the fast path's SASS instructions a point (``cuobjdump``); 3c,
+   the matmul, also gives each kernel's registers and spills from
    ptxas; 3d is flash attention at qwen1.5-4b's shape, with the registers,
    spills and ptxas warnings of every bf16 instantiation;
 4. ``tune``   — the tuning path: a TuningPlan (the §7 abstract platform
@@ -48,15 +51,18 @@ sys.path.insert(0, str(ROOT / "src"))
 REDUCE_N = 2**28
 SWEEP_SIDE = 4096                       # dense 4096 x 4096 lattice, 2^24 points
 SWEEP_CHECK_SIZE = 2**30
+# WG and TS of the sweep's mixed lattice: invalid (<= 0, clamped to 1 as the
+# plain version does), small, around NP and warp, and the int32 extremes
+SWEEP_EDGES = (-2**31, -7, -1, 0, 1, 2, 3, 31, 32, 33, 127, 128, 129, 1000,
+               2**20, 2**30, 2**31 - 1)
 MM_BF16 = (8192, 8192, 8192)
 MM_F32 = (4096, 4096, 4096)
 PAPER_SPEC = {"size": 2**20, "NP": 128, "GMT": 16, "L": 8, "kind": "minimum"}
-# tolerances, stated: min/max/int sums and the sweep exact; a float sum
-# within 1e-6 * sum|x| of the plain version (same f32 fold order, so 0 is
-# expected); matmul as the JAX package's tests, rtol tol and atol tol*sqrt(K),
-# and rel L2 <= 1e-2: at K = 8192 the elementwise bound allows 4.5, too
-# loose to catch a dropped stage (64 of 8192 terms, rel L2 ~ 0.09)
-SUM_TOL = 1e-6
+# tolerances, stated: the reduction equal to its plain version bit for bit
+# (the same fold order, float sums included), the sweep exact; matmul as
+# the JAX package's tests, rtol tol and atol tol*sqrt(K), and rel L2 <=
+# 1e-2: at K = 8192 the elementwise bound allows 4.5, too loose to catch a
+# dropped stage (64 of 8192 terms, rel L2 ~ 0.09)
 MM_TOL = {"bfloat16": 5e-2, "float32": 2e-3}
 MM_REL_L2 = 1e-2
 # flash attention, as the JAX package's kernel tests: bf16
@@ -354,14 +360,16 @@ def main() -> int:
 
     from repro_torch.core import PlatformSpec, WaveParams, model_time, wg_ts_space
     from repro_torch.kernels import _build
-    from repro_torch.kernels.common import F32_FLOPS, BF16_FLOPS
+    from repro_torch.kernels.common import (BF16_FLOPS, F32_FLOPS,
+                                            HBM_BYTES_PER_S, ISSUE_RATE)
     from repro_torch.kernels.flash_attention.kernel import flash_kernel
     from repro_torch.kernels.flash_attention.ops import (
         FlashAttentionTunable, attention_ref, flash_attention, visible_pairs)
     from repro_torch.kernels.matmul_tuned.kernel import matmul_kernel
     from repro_torch.kernels.matmul_tuned.ops import (MatmulTunable,
                                                       matmul_ref, matmul_tuned)
-    from repro_torch.kernels.sweep_eval.kernel import sweep_kernel
+    from repro_torch.kernels.sweep_eval.kernel import (point_instructions,
+                                                      sweep_kernel)
     from repro_torch.kernels.sweep_eval.ops import (SweepEvalTunable,
                                                     sweep_eval, sweep_ref)
     from repro_torch.kernels.tuned_reduction.kernel import reduce_kernel
@@ -399,7 +407,41 @@ def main() -> int:
     summary: dict[str, dict] = {}
 
     # 3. kernels against their plain versions, at full size -----------------
-    # 3a. reduction: int32, f32, bf16 x min, max, sum at n = 2^28
+    # 3a. reduction: int32, f32, bf16 x min, max, sum at n = 2^28, and a
+    # bf16 sum over an unaligned view (x[3:]), element by element
+    library = {"min": torch.amin, "max": torch.amax, "sum": torch.sum}
+
+    def reduce_case(x, op, case):
+        cfg = modeled(ReductionTunable(x.numel(), op=op,
+                                       dtype_bytes=x.element_size()))
+        got = reduce_1d(x, op=op, **cfg)
+        want = reduce_chunked(x, op, cfg["WG"], cfg["TS"])
+        if not torch.equal(got.cpu(), want.cpu()):
+            raise AssertionError(f"reduce {case}: kernel {got} != plain "
+                                 f"{want}")
+        if x.dtype == torch.int32 and op == "sum":
+            wrapped = (int(x.long().sum()) + 2**31) % 2**32 - 2**31
+            if int(got) != wrapped:
+                raise AssertionError(f"int32 sum {got} != {wrapped} (mod 2^32)")
+        elif op != "sum" and not torch.equal(got, library[op](x)):
+            raise AssertionError(f"reduce {case}: {got} != {library[op](x)}")
+        n = x.numel()
+        b, by = bound_ms(n * x.element_size() + x.element_size(), n - 1,
+                         F32_FLOPS)
+        row = {"case": case, "n": n, "config": cfg,
+               "max_abs_err": abs(float(got.double()) - float(want.double())),
+               "tol": 0.0,
+               "err_vs_f64": (abs(float(got.double()) - float(x.double().sum()))
+                              if op == "sum" and x.dtype != torch.int32
+                              else None),
+               "ms": time_ms(lambda: reduce_1d(x, op=op, **cfg), 20),
+               "plain_ms": time_ms(lambda: reduce_chunked(
+                   x, op, cfg["WG"], cfg["TS"]), 2, warmup=1),
+               "library_ms": time_ms(lambda: library[op](x), 20),
+               "bound_ms": b, "bound_by": by}
+        emit("kernel", name="tuned_reduction", **row)
+        return row
+
     for dtype in (torch.int32, torch.float32, torch.bfloat16):
         if dtype == torch.int32:
             x = torch.randint(-2**31, 2**31 - 1, (REDUCE_N,), generator=gen,
@@ -407,37 +449,18 @@ def main() -> int:
         else:
             x = (torch.randn(REDUCE_N, generator=gen, device=dev) * 100
                  ).to(dtype)
-        abs_sum = float(x.double().abs().sum())
-        library = {"min": torch.amin, "max": torch.amax, "sum": torch.sum}
         for op in ("min", "max", "sum"):
-            cfg = modeled(ReductionTunable(REDUCE_N, op=op,
-                                           dtype_bytes=x.element_size()))
-            got = reduce_1d(x, op=op, **cfg)
-            want = reduce_chunked(x, op, cfg["WG"], cfg["TS"])
-            err = abs(float(got.double()) - float(want.double()))
-            exact64 = float(x.double().sum()) if op == "sum" else None
-            if op == "sum" and dtype != torch.int32:
-                tol = SUM_TOL * abs_sum
-            else:
-                tol = 0.0
-            if not err <= tol:
-                raise AssertionError(f"reduce {dtype} {op}: kernel {got} vs "
-                                     f"plain {want} (err {err} > tol {tol})")
-            b, by = bound_ms(REDUCE_N * x.element_size() + x.element_size(),
-                             REDUCE_N - 1, F32_FLOPS)
-            row = {"case": f"{str(dtype)[6:]}-{op}", "n": REDUCE_N,
-                   "config": cfg, "max_abs_err": err, "tol": tol,
-                   "err_vs_f64": (abs(float(got.double()) - exact64)
-                                  if exact64 is not None
-                                  and dtype != torch.int32 else None),
-                   "ms": time_ms(lambda: reduce_1d(x, op=op, **cfg), 20),
-                   "plain_ms": time_ms(lambda: reduce_chunked(
-                       x, op, cfg["WG"], cfg["TS"]), 2, warmup=1),
-                   "library_ms": time_ms(lambda: library[op](x), 20),
-                   "bound_ms": b, "bound_by": by}
-            emit("kernel", name="tuned_reduction", **row)
+            row = reduce_case(x, op, f"{str(dtype)[6:]}-{op}")
             if dtype == torch.int32 and op == "min":
                 summary["tuned_reduction"] = row
+        if dtype == torch.bfloat16:
+            reduce_case(x[3:], "sum", "bfloat16-sum-unaligned-x[3:]")
+        if dtype == torch.float32:             # NaN propagates
+            x[REDUCE_N // 3] = float("nan")
+            for op in ("min", "max"):
+                cfg = modeled(ReductionTunable(REDUCE_N, op=op))
+                if not bool(torch.isnan(reduce_1d(x, op=op, **cfg))):
+                    raise AssertionError(f"reduce f32 {op}: NaN dropped")
         del x
     torch.cuda.empty_cache()
 
@@ -463,6 +486,27 @@ def main() -> int:
         emit("kernel", name="sweep_eval", case=f"check-2^30-warp={warp}",
              points=len(truth), equal_model_time=len(fits),
              beyond_int32=len(truth) - len(fits))
+    # the mixed lattice: every pair of SWEEP_EDGES and random int32 pairs,
+    # at size 2^30 and at size 0 (no work item anywhere)
+    edges = torch.tensor(SWEEP_EDGES, dtype=torch.int32, device=dev)
+    wg = torch.cat([edges.repeat_interleave(len(SWEEP_EDGES)),
+                    torch.randint(-2**31, 2**31 - 1, (2**20,), generator=gen,
+                                  device=dev, dtype=torch.int32)])
+    ts = torch.cat([edges.repeat(len(SWEEP_EDGES)),
+                    torch.randint(-2**31, 2**31 - 1, (2**20,), generator=gen,
+                                  device=dev, dtype=torch.int32)])
+    invalid = int(((wg <= 0) | (ts <= 0)).sum())
+    for q in (p, WaveParams(size=0, NP=128, GMT=16, L=8, kind="minimum",
+                            NU=132, warp=32)):
+        got = sweep_eval(wg, ts, q, threads=256, ept=4)
+        if not torch.equal(got, sweep_ref(q, wg, ts)):
+            raise AssertionError(f"sweep kernel != plain version on the "
+                                 f"mixed lattice (size={q.size})")
+    emit("kernel", name="sweep_eval", case="mixed-invalid", points=wg.numel(),
+         invalid_points=invalid, sizes=[p.size, 0], equal_plain=True)
+
+    # the dense lattice, timed; its bound counts the fast path's SASS
+    # instructions a point against the card's issue rate
     side = torch.arange(1, SWEEP_SIDE + 1, dtype=torch.int32, device=dev)
     wg = side.repeat_interleave(SWEEP_SIDE)
     ts = side.repeat(SWEEP_SIDE)
@@ -472,9 +516,13 @@ def main() -> int:
     want = sweep_ref(p, wg, ts)
     if not torch.equal(got, want):
         raise AssertionError("sweep kernel != plain version on the dense lattice")
-    b, by = bound_ms(3 * 4 * n, 40 * n, F32_FLOPS)
+    instr = point_instructions(table=p.warp is not None and p.NP <= 1024)
+    b, by = bound_ms(3 * 4 * n, instr * n, ISSUE_RATE)
     row = {"case": "dense-4096x4096", "n": n, "config": cfg,
            "max_abs_err": int((got.long() - want.long()).abs().max()),
+           "instr_per_point": instr,
+           "bytes_ms": 3 * 4 * n / HBM_BYTES_PER_S * 1e3,
+           "issue_ms": instr * n / ISSUE_RATE * 1e3,
            "ms": time_ms(lambda: sweep_eval(wg, ts, p, **cfg), 20),
            "plain_ms": time_ms(lambda: sweep_ref(p, wg, ts), 3, warmup=1),
            "library_ms": None, "bound_ms": b, "bound_by": by}

@@ -10,16 +10,33 @@
 // 3.35 TB/s.  Full size (2^28 int32, 1 GiB) has a floor of ~0.32 ms.
 //
 // Design.  The launch parameters ARE the paper's tunables: a block is a
-// work-group of WG threads, and each thread folds a tile of TS elements.
-// Block b owns the contiguous chunk [b*WG*TS, (b+1)*WG*TS); in step j its
-// threads read x[b*WG*TS + j*WG + tid], so every step is one coalesced
-// sweep of WG neighbouring elements and enough blocks stay in flight to
-// keep the memory system busy.  The ragged tail is masked inside the
-// kernel (no padded copy of x).  Each block tree-reduces its WG partials
-// in shared memory and writes ONE partial; a second launch folds the
-// partials with one block of FOLD_THREADS threads.  No atomics: the
-// result is deterministic and the fold order is fixed, which the plain
-// version (ref.py, reduce_chunked) reproduces step for step.
+// work-group of WG threads, and each thread folds TS elements of its
+// block's chunk [b*WG*TS, (b+1)*WG*TS).  Within that contract:
+//   * Loads are 16 bytes (V = 4 int32/f32 or 8 bf16 a load, ld.global.nc),
+//     four of them in flight a thread before it folds.  The chunk is read
+//     in groups of W = min(V, the largest power of two dividing TS)
+//     elements: at step j thread t folds the group at chunk offset
+//     (j*WG + t)*W, its elements in order, so each step is one coalesced
+//     sweep.  When W = V a group is one vector load, or, where x is not
+//     16-byte aligned (a view such as x[1:] is contiguous), the two
+//     aligned vectors that hold it, funnel-shifted: the order of the fold
+//     does not depend on x's address.  When W < V (TS < V, an odd TS) the
+//     groups are read element by element.  Elements past n (the ragged
+//     tail) fold the monoid identity.
+//   * The block folds each warp with shuffles (__reduce_*_sync for int32,
+//     an xor butterfly for floats), then the warps' partials with one more
+//     butterfly in warp 0: no log2(WG) rounds of __syncthreads.
+//   * One launch: each block writes its partial, and the last block to
+//     take a ticket (an atomic after __threadfence) folds all G partials in
+//     index order — thread t folds partials t, t + B, ... — through the
+//     same block fold, writes the result and resets the ticket for the
+//     next call.  The wrapper owns the partials and the ticket per device
+//     and per stream.  No float atomics: the result is deterministic, and
+//     the plain version (ref.py, reduce_chunked) follows the fold step for
+//     step.
+// A block has B = 32 * ceil(WG / 32) threads; threads past WG fold only
+// identities in the first pass and take their share of the partials in
+// the last block's fold.
 //
 // Semantics that differ from the C defaults:
 //   * min/max propagate NaN (fminf/fmaxf would drop it; jnp.minimum and
@@ -35,7 +52,7 @@
 
 namespace {
 
-constexpr int FOLD_THREADS = 1024;
+constexpr int UNROLL = 4;       // vector loads in flight a thread
 
 enum Op { OP_MIN = 0, OP_MAX = 1, OP_SUM = 2 };
 enum DType { DT_INT32 = 0, DT_F32 = 1, DT_BF16 = 2 };
@@ -49,41 +66,57 @@ template <> struct Acc<int, OP_SUM> { using type = uint32_t; };
 template <int OP> struct Acc<float, OP> { using type = float; };
 template <int OP> struct Acc<__nv_bfloat16, OP> { using type = float; };
 
-// ---- monoid: identity and combine ------------------------------------------
+// ---- monoid: identity, combine and a warp's fold ---------------------------
 
 template <typename A, int OP> struct Monoid;
 
 template <> struct Monoid<int, OP_MIN> {
   __device__ static int identity() { return 0x7fffffff; }
   __device__ static int combine(int a, int b) { return b < a ? b : a; }
+  __device__ static int warp(int v) { return __reduce_min_sync(~0u, v); }
 };
 template <> struct Monoid<int, OP_MAX> {
   __device__ static int identity() { return (int)0x80000000; }
   __device__ static int combine(int a, int b) { return b > a ? b : a; }
+  __device__ static int warp(int v) { return __reduce_max_sync(~0u, v); }
 };
 template <> struct Monoid<uint32_t, OP_SUM> {
   __device__ static uint32_t identity() { return 0u; }
   __device__ static uint32_t combine(uint32_t a, uint32_t b) { return a + b; }
+  __device__ static uint32_t warp(uint32_t v) {
+    return __reduce_add_sync(~0u, v);
+  }
 };
-template <> struct Monoid<float, OP_MIN> {
+// Floats: lane i folds (i, i ^ h) for h = 16, 8, 4, 2, 1, its own value
+// first.  Lane 0 so folds the halving tree of ref.py (_tree): the lanes
+// below h hold the tree's entries when lane 0 reads them.
+template <int OP> struct FloatMonoid {
+  __device__ static float warp(float v) {
+#pragma unroll
+    for (int h = 16; h > 0; h >>= 1)
+      v = Monoid<float, OP>::combine(v, __shfl_xor_sync(~0u, v, h));
+    return v;
+  }
+};
+template <> struct Monoid<float, OP_MIN> : FloatMonoid<OP_MIN> {
   __device__ static float identity() { return __int_as_float(0x7f800000); }
   // NaN in either operand wins
   __device__ static float combine(float a, float b) {
     return (a != a || a < b) ? a : b;
   }
 };
-template <> struct Monoid<float, OP_MAX> {
+template <> struct Monoid<float, OP_MAX> : FloatMonoid<OP_MAX> {
   __device__ static float identity() { return -__int_as_float(0x7f800000); }
   __device__ static float combine(float a, float b) {
     return (a != a || a > b) ? a : b;
   }
 };
-template <> struct Monoid<float, OP_SUM> {
+template <> struct Monoid<float, OP_SUM> : FloatMonoid<OP_SUM> {
   __device__ static float identity() { return 0.0f; }
   __device__ static float combine(float a, float b) { return a + b; }
 };
 
-// ---- load into the accumulator type, store back ---------------------------
+// ---- elements: into the accumulator type, out of it, 16-byte vectors -------
 
 template <typename T, typename A> struct Convert;
 template <typename A> struct Convert<int, A> {            // A: int or uint32_t
@@ -99,102 +132,214 @@ template <> struct Convert<__nv_bfloat16, float> {
   __device__ static __nv_bfloat16 out(float v) { return __float2bfloat16(v); }
 };
 
-// Shared-memory tree over n values (any n, not only powers of two): the
-// stride starts at the largest power of two below n, and a thread folds
-// its partner only when the partner exists.  Leaves the result in sh[0].
-template <typename A, int OP>
-__device__ void block_tree(A* sh, int n) {
-  int s = 1;
-  while (s < n) s <<= 1;
-  for (s >>= 1; s > 0; s >>= 1) {
-    const int t = threadIdx.x;
-    if (t < s && t + s < n) sh[t] = Monoid<A, OP>::combine(sh[t], sh[t + s]);
-    __syncthreads();
-  }
+template <typename T> struct Vec { static constexpr int V = 16 / sizeof(T); };
+
+// how a group of V elements is read
+enum Path {
+  PATH_VEC = 0,     // x 16-byte aligned: one vector
+  PATH_SHIFT = 1,   // x misaligned by `mis` bytes: two aligned vectors, shifted
+  PATH_SCALAR = 2   // W < V: element by element
+};
+
+__device__ __forceinline__ uint4 ld_stream_v4(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
 }
 
-// Pass 1: block b folds its WG*TS chunk into partials[b].
-template <typename T, int OP>
-__global__ void reduce_partials(const T* __restrict__ x, long long n, int TS,
-                                typename Acc<T, OP>::type* __restrict__ partials) {
+// The 16 bytes at `p` (a group's first byte, `mis` bytes past the aligned
+// address below it).  PATH_SHIFT reads the two aligned vectors that hold
+// them, through L1, where the next thread's group finds its first one,
+// and funnel-shifts them into place.
+template <int PATH>
+__device__ __forceinline__ uint4 load_group(const char* p, int mis) {
+  if (PATH == PATH_VEC) return ld_stream_v4(p);
+  const uint4* a = reinterpret_cast<const uint4*>(p - mis);
+  const uint4 lo = __ldg(a), hi = __ldg(a + 1);
+  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  const int q = mis >> 2, r = 8 * (mis & 3);
+  uint32_t u[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)                 // u[i] = w[i + q], q uniform
+    u[i] = q == 0 ? w[i] : q == 1 ? w[i + 1] : q == 2 ? w[i + 2] : w[i + 3];
+  return make_uint4(__funnelshift_r(u[0], u[1], r),
+                    __funnelshift_r(u[1], u[2], r),
+                    __funnelshift_r(u[2], u[3], r),
+                    __funnelshift_r(u[3], u[4], r));
+}
+
+// fold the V elements of one 16-byte vector, lowest address first
+template <typename T, int OP, typename A>
+__device__ __forceinline__ A fold_vec(A acc, const uint4& v) {
+  const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+  for (int k = 0; k < Vec<T>::V; ++k)
+    acc = Monoid<A, OP>::combine(acc, Convert<T, A>::in(e[k]));
+  return acc;
+}
+
+// The block's B = blockDim.x values (one a thread) folded: warps first,
+// then warp 0 over the warps' partials (identity-padded to 32).  Every
+// thread calls it; thread 0 gets the result.
+template <typename A, int OP>
+__device__ __forceinline__ A block_fold(A v, A* sh) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  v = Monoid<A, OP>::warp(v);
+  __syncthreads();                       // sh may still be read by a caller
+  if (lane == 0) sh[w] = v;
+  __syncthreads();
+  if (w == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? sh[lane] : Monoid<A, OP>::identity();
+    v = Monoid<A, OP>::warp(v);
+  }
+  return v;
+}
+
+template <typename T, int OP, int PATH>
+__global__ void __launch_bounds__(1024)
+reduce_kernel(const T* __restrict__ x, long long n, int WG, int TS, int W,
+              int mis, typename Acc<T, OP>::type* __restrict__ partials,
+              unsigned int* __restrict__ ticket, T* __restrict__ out) {
   using A = typename Acc<T, OP>::type;
-  extern __shared__ unsigned char smem_raw[];
-  A* sh = reinterpret_cast<A*>(smem_raw);
-  const int WG = blockDim.x;
+  constexpr int V = Vec<T>::V;
+  __shared__ A sh[32];
+  __shared__ bool last;
+  const int t = threadIdx.x;
   const long long chunk = (long long)WG * TS;
-  const long long base = (long long)blockIdx.x * chunk + threadIdx.x;
+  const long long cb = (long long)blockIdx.x * chunk;
+  const int steps = TS / W;
 
   A acc = Monoid<A, OP>::identity();
-  if ((long long)blockIdx.x * chunk + chunk <= n) {     // whole chunk in range
-    for (int j = 0; j < TS; ++j)
-      acc = Monoid<A, OP>::combine(acc, Convert<T, A>::in(x[base + (long long)j * WG]));
-  } else {                                               // the ragged tail
-    for (int j = 0; j < TS; ++j) {
-      const long long i = base + (long long)j * WG;
-      if (i < n) acc = Monoid<A, OP>::combine(acc, Convert<T, A>::in(x[i]));
+  if (t < WG && PATH != PATH_SCALAR) {
+    // group j at element cb + (j*WG + t)*V, 16 bytes
+    const char* p = reinterpret_cast<const char*>(x + cb + (long long)t * V);
+    const long long stride = (long long)WG * V * sizeof(T);
+    int j = 0;
+    if (cb + chunk <= n) {                        // whole chunk in range
+      for (; j + UNROLL <= steps; j += UNROLL) {
+        uint4 v[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+          v[u] = load_group<PATH>(p + (j + u) * stride, mis);
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) acc = fold_vec<T, OP, A>(acc, v[u]);
+      }
+    }
+    for (; j < steps; ++j) {                      // remainder and the tail
+      const long long i = cb + ((long long)j * WG + t) * V;
+      if (i + V <= n) {
+        acc = fold_vec<T, OP, A>(
+            acc, load_group<PATH>(reinterpret_cast<const char*>(x + i), mis));
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          acc = Monoid<A, OP>::combine(
+              acc, i + k < n ? Convert<T, A>::in(x[i + k])
+                             : Monoid<A, OP>::identity());
+      }
+    }
+  } else if (t < WG) {
+    // groups of W < V elements, element by element
+#pragma unroll 4
+    for (int j = 0; j < steps; ++j) {
+      const long long i = cb + ((long long)j * WG + t) * W;
+      T e[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (k < W && i + k < n) e[k] = __ldg(x + i + k);
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (k < W)
+          acc = Monoid<A, OP>::combine(
+              acc, i + k < n ? Convert<T, A>::in(e[k])
+                             : Monoid<A, OP>::identity());
     }
   }
-  sh[threadIdx.x] = acc;
-  __syncthreads();
-  block_tree<A, OP>(sh, WG);
-  if (threadIdx.x == 0) partials[blockIdx.x] = sh[0];
-}
 
-// Pass 2: one block of FOLD_THREADS threads folds the G partials; thread t
-// takes partials t, t + FOLD_THREADS, ... in order, then the block's tree.
-template <typename T, int OP>
-__global__ void reduce_final(const typename Acc<T, OP>::type* __restrict__ partials,
-                             long long G, T* __restrict__ out) {
-  using A = typename Acc<T, OP>::type;
-  __shared__ A sh[FOLD_THREADS];
-  A acc = Monoid<A, OP>::identity();
-  for (long long i = threadIdx.x; i < G; i += FOLD_THREADS)
-    acc = Monoid<A, OP>::combine(acc, partials[i]);
-  sh[threadIdx.x] = acc;
+  acc = block_fold<A, OP>(acc, sh);
+  if (t == 0) {
+    partials[blockIdx.x] = acc;
+    __threadfence();                              // the partial, then the ticket
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
   __syncthreads();
-  block_tree<A, OP>(sh, FOLD_THREADS);
-  if (threadIdx.x == 0) *out = Convert<T, A>::out(sh[0]);
+  if (!last) return;
+
+  // the last block: thread t folds partials t, t + B, ... in order
+  __threadfence();
+  acc = Monoid<A, OP>::identity();
+  for (long long g = t; g < gridDim.x; g += blockDim.x)
+    acc = Monoid<A, OP>::combine(acc, __ldcg(partials + g));
+  acc = block_fold<A, OP>(acc, sh);
+  if (t == 0) {
+    *out = Convert<T, A>::out(acc);
+    *ticket = 0u;                                 // ready for the next call
+  }
 }
 
 template <typename T, int OP>
 cudaError_t launch(const void* x, long long n, int WG, int TS, void* partials,
-                   void* out, cudaStream_t stream) {
+                   void* ticket, void* out, cudaStream_t stream) {
   using A = typename Acc<T, OP>::type;
-  const long long chunk = (long long)WG * TS;
-  const long long G = (n + chunk - 1) / chunk;
-  reduce_partials<T, OP><<<(unsigned)G, WG, WG * sizeof(A), stream>>>(
-      static_cast<const T*>(x), n, TS, static_cast<A*>(partials));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  reduce_final<T, OP><<<1, FOLD_THREADS, 0, stream>>>(
-      static_cast<const A*>(partials), G, static_cast<T*>(out));
+  constexpr int V = Vec<T>::V;
+  const long long G = (n + (long long)WG * TS - 1) / ((long long)WG * TS);
+  const int B = (WG + 31) / 32 * 32;
+  const int W = (TS & -TS) < V ? (TS & -TS) : V;
+  const int mis = (int)(reinterpret_cast<uintptr_t>(x) & 15);
+  const T* xt = static_cast<const T*>(x);
+  A* pt = static_cast<A*>(partials);
+  unsigned int* tk = static_cast<unsigned int*>(ticket);
+  T* o = static_cast<T*>(out);
+  if (W < V)
+    reduce_kernel<T, OP, PATH_SCALAR><<<(unsigned)G, B, 0, stream>>>(
+        xt, n, WG, TS, W, mis, pt, tk, o);
+  else if (mis != 0)
+    reduce_kernel<T, OP, PATH_SHIFT><<<(unsigned)G, B, 0, stream>>>(
+        xt, n, WG, TS, W, mis, pt, tk, o);
+  else
+    reduce_kernel<T, OP, PATH_VEC><<<(unsigned)G, B, 0, stream>>>(
+        xt, n, WG, TS, W, mis, pt, tk, o);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_op(int op, const void* x, long long n, int WG, int TS,
-                      void* partials, void* out, cudaStream_t stream) {
+                      void* partials, void* ticket, void* out,
+                      cudaStream_t stream) {
   switch (op) {
-    case OP_MIN: return launch<T, OP_MIN>(x, n, WG, TS, partials, out, stream);
-    case OP_MAX: return launch<T, OP_MAX>(x, n, WG, TS, partials, out, stream);
-    case OP_SUM: return launch<T, OP_SUM>(x, n, WG, TS, partials, out, stream);
+    case OP_MIN:
+      return launch<T, OP_MIN>(x, n, WG, TS, partials, ticket, out, stream);
+    case OP_MAX:
+      return launch<T, OP_MAX>(x, n, WG, TS, partials, ticket, out, stream);
+    case OP_SUM:
+      return launch<T, OP_SUM>(x, n, WG, TS, partials, ticket, out, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x: n elements of `dtype`; partials: ceil(n / (WG*TS)) 4-byte scratch
-// slots; out: one element of `dtype`.  Returns cudaGetLastError().
+// x: n elements of `dtype`; partials: ceil(n / (WG*TS)) 4-byte slots;
+// ticket: one zeroed uint32 that no launch on another stream uses at the
+// same time (the kernel leaves it zero); out: one element of `dtype`.
+// Returns cudaGetLastError().
 extern "C" int tr_reduce(const void* x, long long n, int dtype, int op, int WG,
-                         int TS, void* partials, void* out, void* stream) {
-  if (n < 1 || WG < 1 || WG > 1024 || TS < 1) return (int)cudaErrorInvalidValue;
+                         int TS, void* partials, void* ticket, void* out,
+                         void* stream) {
+  if (n < 1 || WG < 1 || WG > 1024 || TS < 1 ||
+      (n + (long long)WG * TS - 1) / ((long long)WG * TS) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case DT_INT32: return (int)launch_op<int>(op, x, n, WG, TS, partials, out, s);
-    case DT_F32: return (int)launch_op<float>(op, x, n, WG, TS, partials, out, s);
+    case DT_INT32:
+      return (int)launch_op<int>(op, x, n, WG, TS, partials, ticket, out, s);
+    case DT_F32:
+      return (int)launch_op<float>(op, x, n, WG, TS, partials, ticket, out, s);
     case DT_BF16:
-      return (int)launch_op<__nv_bfloat16>(op, x, n, WG, TS, partials, out, s);
+      return (int)launch_op<__nv_bfloat16>(op, x, n, WG, TS, partials, ticket,
+                                           out, s);
   }
   return (int)cudaErrorInvalidValue;
 }

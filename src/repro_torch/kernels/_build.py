@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,15 +34,17 @@ BUILD_ROOT = _HERE.parents[3] / "build" / "repro_torch_kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_float)
+_P, _I, _U, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                       ctypes.c_longlong, ctypes.c_float)
 # C entry points and their argument types: c_void_p for every pointer
 # and the stream, so ctypes never truncates one to a 32-bit int
 SIGNATURES: dict[str, list] = {
-    # x, n, dtype, op, WG, TS, partials, out, stream
-    "tr_reduce": [_P, _LL, _I, _I, _I, _I, _P, _P, _P],
-    # wg, ts, out, n, size, NP, GMT, L, U, warp, threads, ept, stream
-    "se_sweep_eval": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, n, dtype, op, WG, TS, partials, ticket, out, stream
+    "tr_reduce": [_P, _LL, _I, _I, _I, _I, _P, _P, _P, _P],
+    # wg, ts, out, n, size, NP, GMT, L, U, warp, (m, s) of NP, U and warp,
+    # threads, ept, stream
+    "se_sweep_eval": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _U, _U, _U,
+                      _U, _U, _U, _I, _I, _P],
     # a, b, c, M, N, K, dtype, bm, bn, bk, stream
     "mm_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, o, BH, S, D, dtype, causal, has_window, window, scale,
@@ -118,6 +121,27 @@ def ptxas_usage(lines: list[str]) -> dict[str, dict[str, int]]:
             words = ln.split()
             usage[entry]["registers"] = int(words[words.index("Used") + 1])
     return usage
+
+
+def sass(path: Path) -> dict[str, list[str]]:
+    """Each kernel's SASS instructions in the library at ``path``, from
+    ``cuobjdump -sass`` (predicates kept, operands' spacing squeezed)."""
+
+    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+    out: dict[str, list[str]] = {}
+    fn = None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = []
+            continue
+        instr = re.search(r"\*/\s*(.*?)\s*;", ln)
+        if fn is not None and instr is not None:
+            out[fn].append(re.sub(r"\s+", " ", instr.group(1)))
+    return out
 
 
 def build() -> BuildInfo:
@@ -217,4 +241,4 @@ def check(err: int, what: str) -> None:
 
 
 __all__ = ["build", "library", "build_info", "check", "source_hash",
-           "ptxas_usage", "BuildInfo", "SIGNATURES"]
+           "ptxas_usage", "sass", "BuildInfo", "SIGNATURES"]

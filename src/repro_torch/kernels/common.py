@@ -23,6 +23,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12          # tensor cores
 F32_FLOPS = 67e12            # FMA units, no TF32
+# instruction issue: each SM's four schedulers issue one 32-lane warp
+# instruction a cycle (132 SMs at 1.98 GHz), the FMA rate above counted
+# in instructions; the ceiling for integer code such as the sweep
+ISSUE_RATE = F32_FLOPS / 2   # lane-instructions per second
 SMS = 132
 THREADS_PER_SM = 2048
 # modeling assumption, not a data-sheet number: host cost of one launch
@@ -115,4 +119,4 @@ def tunable_device(x, device=None) -> str | None:
 
 __all__ = ["median", "resolve_device", "as_device_tensor", "time_fn",
            "generator", "tunable_device", "HBM_BYTES_PER_S", "BF16_FLOPS",
-           "F32_FLOPS", "SMS", "THREADS_PER_SM", "LAUNCH_US"]
+           "F32_FLOPS", "ISSUE_RATE", "SMS", "THREADS_PER_SM", "LAUNCH_US"]

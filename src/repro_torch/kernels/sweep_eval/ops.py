@@ -1,13 +1,16 @@
 """Public entry point + ``repro_torch.tune`` integration for the on-device
 lattice sweep — the tuner tuning its own evaluator: the kernel's launch
-shape (``threads`` per block × ``ept`` configurations per thread) is
-itself resolved through ``@autotune`` when omitted.
+shape (``threads`` per block × ``ept`` vectors of 4 configurations per
+thread) is itself resolved through ``@autotune`` when omitted.
 
 The lattice is the card's, not the TPU's: ``threads`` a power of two
 from 64 to 1024, ``ept`` a power of two up to 16, no block covering more
-than the data.  The cost model streams three int32 arrays at 3.35 TB/s
-(derated while the card is not full of threads), plus a small
-per-block scheduling cost and one launch.
+than the data.  The cost model takes the larger of two times, both
+derated while the card is not full of threads: three int32 arrays
+streamed at 3.35 TB/s, and ``INSTR_PER_POINT`` instructions a point at
+the card's issue rate times the share of it the kernel reaches
+(``_ISSUE_SHARE``); plus a per-block cost (``_BLOCK_US``) and one launch,
+all three constants fitted on the card.
 """
 
 from __future__ import annotations
@@ -20,14 +23,20 @@ import torch
 from ...core.search_space import Param, SearchSpace, powers_of_two
 from ...core.wave_model import WaveParams
 from ...tune import autotune
-from ..common import (HBM_BYTES_PER_S, LAUNCH_US, SMS, THREADS_PER_SM,
-                      as_device_tensor, generator, resolve_device, time_fn,
-                      tunable_device)
+from ..common import (HBM_BYTES_PER_S, ISSUE_RATE, LAUNCH_US, SMS,
+                      THREADS_PER_SM, as_device_tensor, generator,
+                      resolve_device, time_fn, tunable_device)
 from .kernel import sweep_kernel
 from .ref import SENTINEL, sweep_ref
 
-# modeling assumption: amortized cost of scheduling one block on an SM
-_BLOCK_US = 0.01
+# SASS instructions of one configuration on the kernel's fast path with
+# the gmt_eff table (the probe kernel), the share of the issue rate the
+# sweep reaches and a block's cost on its SM (scheduling, the table's
+# fill), fitted by tools/reduce_sweep_report.py on an H100 (the dense
+# 4096 x 4096 lattice at every launch shape, NP = 1024, warp = 32)
+INSTR_PER_POINT = 110
+_ISSUE_SHARE = 0.62
+_BLOCK_US = 0.17
 
 
 def tuning_space(n: int) -> SearchSpace:
@@ -36,7 +45,7 @@ def tuning_space(n: int) -> SearchSpace:
     space = SearchSpace(params=[Param("threads", powers_of_two(64, 1024)),
                                 Param("ept", powers_of_two(1, 16))])
     space.constraints.append(
-        lambda c: c["ept"] == 1 or c["threads"] * c["ept"] <= n)
+        lambda c: c["ept"] == 1 or 4 * c["threads"] * c["ept"] <= n)
     return space
 
 
@@ -44,10 +53,12 @@ def cost_model(cfg: Mapping[str, Any], *, n: int) -> float:
     """Modeled microseconds on an H100 (see the module docstring)."""
 
     threads, ept = cfg["threads"], cfg["ept"]
-    blocks = -(-n // (threads * ept))
+    blocks = -(-n // (4 * threads * ept))
     resident = min(1.0, blocks * threads / (SMS * THREADS_PER_SM))
     stream_us = 3 * 4 * n / (HBM_BYTES_PER_S / 1e6 * resident)
-    return stream_us + blocks * _BLOCK_US / SMS + LAUNCH_US
+    issue_us = INSTR_PER_POINT * n / (ISSUE_RATE / 1e6 * _ISSUE_SHARE
+                                      * resident)
+    return max(stream_us, issue_us) + blocks * _BLOCK_US / SMS + LAUNCH_US
 
 
 @dataclass(frozen=True)
@@ -108,4 +119,4 @@ def sweep_eval(wg, ts, p: WaveParams, *, threads: int | None = None,
 
 
 __all__ = ["sweep_eval", "SweepEvalTunable", "tuning_space", "cost_model",
-           "sweep_ref", "sweep_kernel", "SENTINEL"]
+           "sweep_ref", "sweep_kernel", "SENTINEL", "INSTR_PER_POINT"]

@@ -5,11 +5,13 @@ reduction — the paper's §7 Minimum problem as a (WG, TS) kernel.
 resolve through ``@autotune`` and the port's tuning cache.  The
 :class:`ReductionTunable` lattice is the kernel's launch space on the
 card: WG a multiple of 32 from 64 to 1024 threads (a block's limit), TS
-a power of two, no work-group tile larger than the data and no grid
-beyond 2^31 - 1 blocks.  Its cost model prices device-memory streaming
-at the H100's 3.35 TB/s, scaled down when too few threads are in flight
-to cover the memory latency, plus the second pass that folds one partial
-per block on one SM.
+a power of two from the 16-byte vector's element count up (the TS values
+the vector path serves), no work-group tile larger than the data and no
+grid beyond 2^31 - 1 blocks.  Its cost model streams the data in waves
+of resident blocks: a wave moves at the card's 3.35 TB/s unless its
+blocks' loads in flight cannot cover the memory latency, so a short last
+wave (the tail) runs at the rate its few blocks sustain; then the last
+block folds the partials, and there is one launch.
 """
 
 from __future__ import annotations
@@ -25,21 +27,31 @@ from ..common import (HBM_BYTES_PER_S, LAUNCH_US, SMS, THREADS_PER_SM,
                       as_device_tensor, generator, resolve_device, time_fn,
                       tunable_device)
 from .kernel import reduce_kernel
-from .ref import reduce_chunked
+from .ref import block_threads, group_width, reduce_chunked
 
 WG_VALUES = tuple(range(64, 1025, 32))
 _MAX_BLOCKS = 2**31 - 1
+_UNROLL = 4            # vector loads in flight a thread (the kernel's UNROLL)
+# device-memory latency under load, fitted by tools/reduce_sweep_report.py
+# on an H100 (int32 and bf16 at 2^28 over a grid of (WG, TS)); modeling
+# assumptions: a block's fixed cost (its folds, the ticket) and the last
+# block's time per partial read from L2 by each of its threads
+_LATENCY_US = 1.35
+_BLOCK_US = 0.5
+_L2_US = 0.3
 
 
-def tuning_space(n: int) -> SearchSpace:
-    """(WG, TS) lattice for an ``n``-element reduction on the card."""
+def tuning_space(n: int, dtype_bytes: int = 4) -> SearchSpace:
+    """(WG, TS) lattice for an ``n``-element reduction on the card; TS
+    starts at the vector's element count, which is always allowed."""
 
+    ts_min = 16 // dtype_bytes
     space = SearchSpace(params=[
         Param("WG", WG_VALUES),
-        Param("TS", powers_of_two(1, max(1, n // WG_VALUES[0]))),
+        Param("TS", powers_of_two(ts_min, max(ts_min, n // WG_VALUES[0]))),
     ])
     space.constraints.append(
-        lambda c: c["TS"] == 1 or c["WG"] * c["TS"] <= n)
+        lambda c: c["TS"] == ts_min or c["WG"] * c["TS"] <= n)
     space.constraints.append(
         lambda c: -(-n // (c["WG"] * c["TS"])) <= _MAX_BLOCKS)
     return space
@@ -47,18 +59,29 @@ def tuning_space(n: int) -> SearchSpace:
 
 def cost_model(cfg: Mapping[str, Any], *, n: int,
                dtype_bytes: int = 4) -> float:
-    """Modeled microseconds on an H100: stream n elements at the memory
-    rate (derated when fewer than a full card of threads is resident),
-    fold one 4-byte partial per block on one SM's share of the
-    bandwidth, and pay two launches."""
+    """Modeled microseconds on an H100 (see the module docstring).  A
+    block keeps WG · ``_UNROLL`` groups of loads in flight, so it streams
+    at most that many bytes per ``_LATENCY_US``; a wave of k blocks moves
+    at the lesser of k such rates and the card's.  Up to
+    THREADS_PER_SM / B blocks are resident on each SM."""
 
     WG, TS = cfg["WG"], cfg["TS"]
     blocks = -(-n // (WG * TS))
-    resident = min(1.0, blocks * WG / (SMS * THREADS_PER_SM))
-    bytes_per_us = HBM_BYTES_PER_S / 1e6
-    stream_us = n * dtype_bytes / (bytes_per_us * resident)
-    fold_us = blocks * 4 / (bytes_per_us / SMS)
-    return stream_us + fold_us + 2 * LAUNCH_US
+    B = block_threads(WG)
+    group_bytes = group_width(TS, dtype_bytes) * dtype_bytes
+    steps = TS * dtype_bytes // group_bytes
+    block_rate = WG * min(_UNROLL, steps) * group_bytes / _LATENCY_US
+    card_rate = HBM_BYTES_PER_S / 1e6                   # bytes per us
+    chunk_bytes = WG * TS * dtype_bytes
+    per_wave = SMS * min(32, THREADS_PER_SM // B)
+
+    def wave_us(k: int) -> float:
+        return k * chunk_bytes / min(card_rate, k * block_rate) + _BLOCK_US
+
+    full, tail = divmod(blocks, per_wave)
+    stream_us = full * wave_us(per_wave) + (wave_us(tail) if tail else 0.0)
+    fold_us = -(-blocks // B) * _L2_US
+    return stream_us + fold_us + LAUNCH_US
 
 
 @dataclass(frozen=True)
@@ -73,7 +96,7 @@ class ReductionTunable:
     name: ClassVar[str] = "kernels.tuned_reduction"
 
     def space(self) -> SearchSpace:
-        return tuning_space(self.n)
+        return tuning_space(self.n, self.dtype_bytes)
 
     def cost(self, cfg: Mapping[str, Any]) -> float:
         return cost_model(cfg, n=self.n, dtype_bytes=self.dtype_bytes)

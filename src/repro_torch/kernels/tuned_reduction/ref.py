@@ -1,15 +1,20 @@
 """Plain PyTorch version of the tuned reduction kernel.
 
 :func:`reduce_chunked` folds in exactly the order of
-``csrc/tuned_reduction.cu``: thread (b, t) folds elements
-``b*WG*TS + j*WG + t`` for j = 0..TS-1, each block tree-reduces its WG
-partials (stride halving from the largest power of two below WG), and the
-block partials are folded by FOLD_THREADS "threads", each in order,
-followed by the same tree.  Padding with the monoid identity stands in
-for the kernel's masked tail (``op(a, identity) == a`` exactly).  So
-min, max and the int32 sum match the kernel bit for bit for every
-(WG, TS), and so does the f32 sum, which depends on (WG, TS) only
-through its rounding.
+``csrc/tuned_reduction.cu``.  Block b owns the chunk of WG·TS elements
+from b·WG·TS, read in groups of W = :func:`group_width` elements (16
+bytes, or fewer when TS is not a multiple of that): thread t folds the
+group at chunk offset (j·WG + t)·W for j = 0..TS/W-1, each group's
+elements in order.  A block of B = 32·⌈WG/32⌉ threads (threads past WG
+hold the identity) then folds each warp's 32 values with a halving
+tree, and the warps' partials, padded to 32, with the same tree.  The
+block partials are folded by the B threads of one block, thread t
+taking partials t, t + B, ... in order, followed by the same block
+fold.  Padding with the monoid identity stands in for the kernel's
+masked tail (``op(a, identity) == a`` exactly).  So min, max and the
+int32 sum match the kernel bit for bit for every (WG, TS), and so do
+the f32 and bf16 sums, which depend on (WG, TS) only through their
+rounding.
 
 Semantics: identities are ±inf for floats and the int32 bounds for
 ints; min/max propagate NaN; the int32 sum wraps mod 2^32; f32 and bf16
@@ -20,9 +25,23 @@ from __future__ import annotations
 
 import torch
 
-FOLD_THREADS = 1024
 OPS = ("min", "max", "sum")
 DTYPES = (torch.int32, torch.float32, torch.bfloat16)
+VECTOR_BYTES = 16
+WARP = 32
+
+
+def group_width(TS: int, element_size: int) -> int:
+    """Elements a thread folds from one place: the 16-byte vector's
+    count, cut to the largest power of two that divides ``TS``."""
+
+    return min(TS & -TS, VECTOR_BYTES // element_size)
+
+
+def block_threads(WG: int) -> int:
+    """Threads of a block: WG rounded up to whole warps."""
+
+    return -(-WG // WARP) * WARP
 
 
 def identity(op: str, dtype: torch.dtype):
@@ -48,20 +67,33 @@ def combine(op: str):
     return {"min": torch.minimum, "max": torch.maximum, "sum": torch.add}[op]
 
 
-def _tree(acc: torch.Tensor, op: str) -> torch.Tensor:
-    """Fold the last axis like the kernel's shared-memory tree."""
+def _pad(acc: torch.Tensor, width: int, op: str) -> torch.Tensor:
+    """``acc`` padded with the identity to ``width`` along its last axis."""
 
-    width = acc.shape[-1]
-    p2 = 1 << max(0, (width - 1).bit_length())
-    if p2 > width:
-        pad = acc.new_full((*acc.shape[:-1], p2 - width),
-                           identity(op, acc.dtype))
-        acc = torch.cat([acc, pad], dim=-1)
+    extra = width - acc.shape[-1]
+    if extra == 0:
+        return acc
+    pad = acc.new_full((*acc.shape[:-1], extra), identity(op, acc.dtype))
+    return torch.cat([acc, pad], dim=-1)
+
+
+def _tree(acc: torch.Tensor, op: str) -> torch.Tensor:
+    """Fold the last axis (a power of two wide) as a warp's butterfly
+    leaves it in lane 0: entry i takes entry i + h for h = width/2 .. 1."""
+
     comb = combine(op)
     while acc.shape[-1] > 1:
         h = acc.shape[-1] // 2
         acc = comb(acc[..., :h], acc[..., h:])
     return acc[..., 0]
+
+
+def _block_fold(acc: torch.Tensor, op: str) -> torch.Tensor:
+    """Fold the last axis (B = a multiple of 32 values, one a thread):
+    each warp's tree, then the tree over the warps' partials padded to 32."""
+
+    warps = _tree(acc.view(*acc.shape[:-1], -1, WARP), op)
+    return _tree(_pad(warps, WARP, op), op)
 
 
 def _finish(acc: torch.Tensor, op: str, dtype: torch.dtype) -> torch.Tensor:
@@ -78,26 +110,24 @@ def reduce_chunked(x: torch.Tensor, op: str, WG: int, TS: int) -> torch.Tensor:
     adt = acc_dtype(op, x.dtype)
     chunk = WG * TS
     G = -(-n // chunk)
-    if G * chunk != n:
-        x = torch.cat([x, x.new_full((G * chunk - n,), identity(op, x.dtype))])
-    view = x.view(G, TS, WG)
+    W = group_width(TS, x.element_size())
+    B = block_threads(WG)
+    x = _pad(x, G * chunk, op)
+    view = x.view(G, TS // W, WG, W)
     comb = combine(op)
     acc = torch.full((G, WG), identity(op, adt), dtype=adt, device=x.device)
-    for j in range(TS):
-        acc = comb(acc, view[:, j, :].to(adt))
-    partials = _tree(acc, op)                                   # (G,)
+    for j in range(TS // W):
+        for k in range(W):
+            acc = comb(acc, view[:, j, :, k].to(adt))
+    partials = _block_fold(_pad(acc, B, op), op)               # (G,)
 
-    rows = -(-G // FOLD_THREADS)
-    if rows * FOLD_THREADS != G:
-        partials = torch.cat([partials, partials.new_full(
-            (rows * FOLD_THREADS - G,), identity(op, adt))])
-    folded = partials.view(rows, FOLD_THREADS)
-    acc = torch.full((FOLD_THREADS,), identity(op, adt), dtype=adt,
-                     device=x.device)
+    rows = -(-G // B)
+    folded = _pad(partials, rows * B, op).view(rows, B)
+    acc = torch.full((B,), identity(op, adt), dtype=adt, device=x.device)
     for r in range(rows):
         acc = comb(acc, folded[r])
-    return _finish(_tree(acc, op), op, x.dtype)
+    return _finish(_block_fold(acc, op), op, x.dtype)
 
 
-__all__ = ["reduce_chunked", "identity", "acc_dtype", "combine",
-           "FOLD_THREADS", "OPS", "DTYPES"]
+__all__ = ["reduce_chunked", "group_width", "block_threads", "identity",
+           "acc_dtype", "combine", "OPS", "DTYPES"]

@@ -82,6 +82,20 @@ def test_sweep_kernel_equals_plain_version_and_model(cuda, warp, threads,
                                                      ept):
     p = WaveParams(size=2**20, NP=128, GMT=16, L=8, kind="minimum", NU=132,
                    warp=warp)
+    _sweep_equals_plain_and_model(p, threads, ept, cuda)
+
+
+@pytest.mark.parametrize("NP,warp", [(2000, 33), (1, 1), (3, 2**31 - 1)])
+def test_sweep_kernel_every_gmt_path(cuda, NP, warp):
+    """NP above the shared-memory table's 1024 entries divides per
+    point; a table of one or a few entries, and a warp wider than NP."""
+
+    p = WaveParams(size=2**20, NP=NP, GMT=16, L=8, kind="minimum", NU=7,
+                   warp=warp)
+    _sweep_equals_plain_and_model(p, 256, 4, cuda)
+
+
+def _sweep_equals_plain_and_model(p, threads, ept, cuda):
     arrs = wg_ts_space(p.size).to_arrays()
     wg = torch.as_tensor(arrs["WG"], dtype=torch.int32, device=cuda)
     ts = torch.as_tensor(arrs["TS"], dtype=torch.int32, device=cuda)
@@ -106,6 +120,86 @@ def test_sweep_kernel_on_a_dense_ragged_lattice(cuda):
                        dtype=torch.int32)                  # some ts > size
     got = sweep_eval(wg, ts, p, threads=128, ept=8)
     assert torch.equal(got, sweep_ref(p, wg, ts))
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.int32, 1),
+                                          (torch.float32, 1),
+                                          (torch.bfloat16, 1),
+                                          (torch.bfloat16, 3)])
+@pytest.mark.parametrize("op", ["min", "max", "sum"])
+def test_reduction_kernel_on_an_unaligned_view(cuda, dtype, offset, op):
+    """x[offset:] is contiguous but not 16-byte aligned: the kernel reads
+    the same groups, in the same order, through the two aligned vectors
+    that hold each (or element by element where TS < the vector)."""
+
+    x = _data(dtype, 2**20 + 17, cuda, seed=3)[offset:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    for WG, TS in [(256, 64), (1024, 8), (96, 4)]:
+        before = reduce_kernel.launches
+        got = reduce_1d(x, op=op, WG=WG, TS=TS)
+        assert reduce_kernel.launches == before + 1
+        assert torch.equal(got.cpu(), reduce_chunked(x, op, WG, TS).cpu()), \
+            (WG, TS)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["min", "max", "sum"])
+def test_reduction_kernel_below_one_vector(cuda, dtype, op):
+    full = _data(dtype, 8, cuda, seed=4)
+    for n in range(1, 8):
+        for WG, TS in [(64, 8), (32, 1), (33, 3)]:
+            x = full[:n]
+            got = reduce_1d(x, op=op, WG=WG, TS=TS)
+            assert torch.equal(got.cpu(), reduce_chunked(x, op, WG, TS).cpu())
+            if op != "sum":
+                want = x.min() if op == "min" else x.max()
+                assert torch.equal(got.cpu(), want.cpu())
+
+
+def test_reductions_on_two_streams_at_once(cuda):
+    """Each stream has its own partials and ticket: reductions in flight
+    on two streams together give each stream's own answer."""
+
+    xs = [_data(torch.float32, 2**23 + 5, cuda, seed=s) for s in (5, 6)]
+    wants = [reduce_chunked(x, "sum", 256, 16) for x in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got: list[list] = [[], []]
+    for _ in range(20):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(reduce_1d(xs[i], op="sum", WG=256, TS=16))
+    torch.cuda.synchronize()
+    assert not torch.equal(wants[0], wants[1])
+    for i in range(2):
+        assert all(torch.equal(g, wants[i]) for g in got[i]), i
+
+
+# points the fast path's arithmetic must get right as the plain version
+# does: WG or TS <= 0 (clamped to 1), the int32 extremes, size 0
+_EDGE_WG_TS = [-2**31, -7, -1, 0, 1, 2, 3, 31, 32, 33, 127, 128, 129, 1000,
+               2**20, 2**30, 2**31 - 1]
+
+
+@pytest.mark.parametrize("size", [2**30, 12_345, 0, 2**31 - 1])
+@pytest.mark.parametrize("NP,warp", [(128, None), (128, 32), (3, 7),
+                                     (2000, 33)])
+def test_sweep_kernel_on_invalid_and_extreme_points(cuda, size, NP, warp):
+    p = WaveParams(size=size, NP=NP, GMT=16, L=8, kind="minimum", NU=132,
+                   warp=warp)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(size % 1000 + NP)
+    edge = torch.tensor(_EDGE_WG_TS, dtype=torch.int32, device=cuda)
+    wg = torch.cat([edge.repeat_interleave(len(_EDGE_WG_TS)),
+                    torch.randint(-2**31, 2**31 - 1, (4099,), generator=g,
+                                  device=cuda, dtype=torch.int32)])
+    ts = torch.cat([edge.repeat(len(_EDGE_WG_TS)),
+                    torch.randint(-2**31, 2**31 - 1, (4099,), generator=g,
+                                  device=cuda, dtype=torch.int32)])
+    for a, b in [(wg, ts), (wg[1:], ts[1:])]:       # vector and unaligned
+        got = sweep_eval(a, b, p, threads=128, ept=2)
+        assert torch.equal(got, sweep_ref(p, a, b))
 
 
 def _mm_operands(shape, dtype, device, seed=2):

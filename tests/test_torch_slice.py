@@ -2,6 +2,7 @@
 runs on the card (its phase 4), here with n = 2^14 and the plain
 versions, held against the JAX package's plan and kernels."""
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -18,6 +19,7 @@ from repro.tune import PlatformTunable as JaxPlatformTunable  # noqa: E402
 from repro.tune import TuningCache as JaxTuningCache  # noqa: E402
 from repro.tune import TuningPlan as JaxTuningPlan  # noqa: E402
 from repro_torch.interop import from_numpy, platform_spec_from_dict  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.matmul_tuned.ops import MatmulTunable, matmul_tuned  # noqa: E402
 from repro_torch.kernels.sweep_eval.ops import SweepEvalTunable, sweep_eval  # noqa: E402
 from repro_torch.kernels.tuned_reduction.ops import (  # noqa: E402
@@ -135,3 +137,15 @@ print(len(names))
                                          "PATH": "/usr/bin:/bin"},
                          timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("entry", sorted(_build.SIGNATURES))
+def test_ctypes_signature_matches_the_c_entry_point(entry):
+    """ctypes passes arguments beyond ``argtypes`` as C ints, which cuts
+    a pointer: each ``SIGNATURES`` line must list every parameter of its
+    ``extern "C"`` function in ``csrc``."""
+
+    src = "\n".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+    assert m is not None, entry
+    assert len(m.group(1).split(",")) == len(_build.SIGNATURES[entry])

@@ -3,7 +3,8 @@
 ``repro``'s ``sweep_eval`` (the Pallas kernel in interpret mode) and
 ``model_time`` against ``repro_torch``'s ``sweep_eval`` on CPU tensors
 (the plain int32 version) and ``model_time_torch``, exactly, over the
-whole (WG, TS) lattice.
+whole (WG, TS) lattice; and the host's magic numbers, through which the
+CUDA kernel divides by the wave parameters, against Python's ``//``.
 """
 
 import numpy as np
@@ -20,6 +21,7 @@ from repro_torch.core.search_space import wg_ts_space  # noqa: E402
 from repro_torch.core.sweep import sweep_times, sweep_times_torch  # noqa: E402
 from repro_torch.core.wave_model import model_time, model_time_torch  # noqa: E402
 from repro_torch.interop import from_numpy, to_numpy, wave_params_from_dict  # noqa: E402
+from repro_torch.kernels.sweep_eval.kernel import magic_u31  # noqa: E402
 from repro_torch.kernels.sweep_eval.ops import (SENTINEL, sweep_eval,  # noqa: E402
                                                 tuning_space)
 from repro_torch.tune import TuningCache, set_default_cache  # noqa: E402
@@ -100,3 +102,49 @@ def test_abstract_kind_is_refused():
     with pytest.raises(ValueError, match="Minimum"):
         sweep_eval(torch.ones(4, dtype=torch.int32),
                    torch.ones(4, dtype=torch.int32), p)
+
+
+# The kernel divides by NP, U and warp through host-computed magic
+# numbers; these hold magic_u31 to Python's // over 31-bit dividends.
+_EDGE_DIVISORS = sorted({1, 2, 3, 7, 2**31 - 1}
+                        | {2**k + e for k in range(1, 31) for e in (-1, 0, 1)
+                           if 1 <= 2**k + e < 2**31})
+
+
+def _magic_quotients(a: np.ndarray, d: int) -> np.ndarray:
+    """The kernel's quotients, (umulhi(a, m) if m else a) >> s, exactly
+    (a < 2^31 and m < 2^32, so a * m fits 64 bits)."""
+
+    m, s = magic_u31(d)
+    assert 0 <= m < 2**32 and 0 <= s <= 31
+    a = a.astype(np.uint64)
+    return (((a * np.uint64(m)) >> np.uint64(32)) if m else a) >> np.uint64(s)
+
+
+def test_magic_numbers_divide_exactly_brute_force():
+    rng = np.random.default_rng(0)
+    a = np.concatenate([np.arange(0, 4097, dtype=np.int64),
+                        rng.integers(0, 2**31, 4000),
+                        2**31 - 1 - np.arange(0, 64)])
+    for d in range(1, 4097):
+        np.testing.assert_array_equal(_magic_quotients(a, d), a // d,
+                                      err_msg=f"d={d}")
+
+
+@pytest.mark.parametrize("d", _EDGE_DIVISORS)
+def test_magic_numbers_at_the_edges(d):
+    top = (2**31 - 1) // d * d
+    a = np.array(sorted(v for v in {0, 1, d - 1, d, d + 1, 2 * d - 1,
+                                    top - 1, top, 2**31 - 2, 2**31 - 1}
+                        if 0 <= v < 2**31), dtype=np.int64)
+    np.testing.assert_array_equal(_magic_quotients(a, d), a // d)
+
+
+def test_magic_numbers_refuse_divisors_outside_31_bits():
+    for d in (0, -1, 2**31):
+        with pytest.raises(ValueError):
+            magic_u31(d)
+
+
+def test_power_of_two_divisors_are_shifts():
+    assert [magic_u31(2**k) for k in range(31)] == [(0, k) for k in range(31)]

@@ -2,7 +2,9 @@
 
 The same seeded numpy inputs go through ``repro``'s ``reduce_1d`` (the
 Pallas kernel in interpret mode) and ``repro_torch``'s ``reduce_1d`` on
-CPU tensors (the plain version, which folds in the CUDA kernel's order).
+CPU tensors (the plain version, which folds in the CUDA kernel's order),
+and that order itself, over the paths the kernel takes, against the JAX
+package's reference.
 """
 
 import numpy as np
@@ -12,6 +14,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.tuned_reduction.ops import reduce_1d as jax_reduce_1d  # noqa: E402
+from repro.kernels.tuned_reduction.ref import reduce_ref as jax_reduce_ref  # noqa: E402
 from repro_torch.interop import from_numpy, to_numpy  # noqa: E402
 from repro_torch.kernels.tuned_reduction.ops import (  # noqa: E402
     reduce_1d, reduce_chunked, tuning_space)
@@ -120,3 +123,41 @@ def test_explicit_launch_parameters_and_autotune_agree():
     assert decision.stats["cache"] == "hit"
     pinned = reduce_1d(x, op="max", WG=96, TS=4)
     assert int(tuned) == int(pinned) == int(x.max())
+
+
+# (WG, TS) that take each path of the kernel's fold order: TS below the
+# 16-byte vector's count (4 int32/f32, 8 bf16), an odd TS, TS = 2 and 4
+# mod 8, groups of a whole vector, and WG not a multiple of 32
+CHUNKED_CFGS = [(64, 1), (96, 2), (33, 3), (40, 4), (64, 6), (128, 8),
+                (1000, 12), (32, 64)]
+
+
+@pytest.mark.parametrize("dtype", list(JAX_DTYPES))
+@pytest.mark.parametrize("op", ["min", "max", "sum"])
+@pytest.mark.parametrize("n", [1, 7, 31, 1000, 4099, 12_345])
+def test_chunked_order_matches_jax_reference(dtype, op, n):
+    """The kernel's fold order (reduce_chunked) against the JAX
+    package's reference: exact for min, max and the int32 sum (which
+    wraps); a float sum within 1e-5 of sum|x| (f32 accumulation in
+    another order), bf16 rounded once more, within 2^-8 of the result."""
+
+    rng = np.random.default_rng(n * 3 + len(op) + len(dtype))
+    if dtype == "int32":
+        x_np = rng.integers(-2**31, 2**31, size=n, dtype=np.int64)
+    else:
+        x_np = rng.standard_normal(n) * 100
+    xj = jnp.asarray(x_np, JAX_DTYPES[dtype])
+    wide = xj.astype(jnp.float32) if dtype == "bfloat16" else xj
+    want = np.asarray(jax_reduce_ref(wide, op)).astype(np.float64)
+    x = from_numpy(np.asarray(xj), "cpu")
+    for WG, TS in CHUNKED_CFGS:
+        got = reduce_chunked(x, op, WG, TS)
+        assert got.dtype == x.dtype and got.shape == ()
+        got = float(got.double()) if dtype != "int32" else int(got)
+        if op != "sum" or dtype == "int32":
+            assert got == want, (WG, TS)
+            continue
+        tol = 1e-5 * float(np.abs(np.asarray(wide, np.float64)).sum())
+        if dtype == "bfloat16":
+            tol += abs(want) * 2**-8
+        assert abs(got - want) <= tol, (WG, TS, got, want)

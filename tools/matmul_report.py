@@ -33,7 +33,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -66,29 +65,16 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def sass_counts(so: Path) -> dict[str, dict]:
     """Instruction counts of each bf16 kernel in ``cuobjdump -sass``."""
 
-    from repro_torch.kernels._build import nvcc_path
-    cuobjdump = Path(nvcc_path()).parent / "cuobjdump"
-    text = subprocess.run([str(cuobjdump), "-sass", str(so)], check=True,
-                          capture_output=True, text=True).stdout
+    from repro_torch.kernels._build import sass
     out: dict[str, dict] = {}
-    fn = None
-    for ln in text.splitlines():
-        m = re.search(r"Function : (\S+)", ln)
-        if m:
-            fn = m.group(1) if "mm_bf16" in m.group(1) else None
-            if fn:
-                out[fn] = {"counts": dict.fromkeys(MARKERS, 0), "sample": {}}
+    for fn, instrs in sass(so).items():
+        if "mm_bf16" not in fn:
             continue
-        if fn is None:
-            continue
-        instr = re.search(r"\*/\s*(.*?;)", ln)
-        if instr is None:
-            continue
-        for mk in MARKERS:
-            if mk in instr.group(1):
-                out[fn]["counts"][mk] += 1
-                out[fn]["sample"].setdefault(
-                    mk, re.sub(r"\s+", " ", instr.group(1)))
+        out[fn] = {"counts": {mk: sum(mk in i for i in instrs)
+                              for mk in MARKERS},
+                   "sample": {mk: next(i for i in instrs if mk in i)
+                              for mk in MARKERS
+                              if any(mk in i for i in instrs)}}
     return out
 
 
