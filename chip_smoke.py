@@ -11,8 +11,8 @@ Each phase prints one JSON line:
 3. ``kernel`` — each kernel against its plain PyTorch version at full size
    (error, kernel / plain / library time, bound), one line per case;
    3a, the reduction, adds a view that is not 16-byte aligned and a NaN;
-   3b, the sweep, a lattice that mixes invalid points, and its bound
-   counts the fast path's SASS instructions a point (``cuobjdump``); 3c,
+   3b, the sweep, a lattice that mixes invalid points, and beside its
+   bound the fast path's SASS instructions a point (``cuobjdump``); 3c,
    the matmul, also gives each kernel's registers and spills from
    ptxas; 3d is flash attention at qwen1.5-4b's shape, with the registers,
    spills and ptxas warnings of every bf16 instantiation;
@@ -371,7 +371,8 @@ def main() -> int:
     from repro_torch.kernels.sweep_eval.kernel import (point_instructions,
                                                       sweep_kernel)
     from repro_torch.kernels.sweep_eval.ops import (SweepEvalTunable,
-                                                    sweep_eval, sweep_ref)
+                                                    point_ops, sweep_eval,
+                                                    sweep_ref)
     from repro_torch.kernels.tuned_reduction.kernel import reduce_kernel
     from repro_torch.kernels.tuned_reduction.ops import (ReductionTunable,
                                                          reduce_1d,
@@ -408,8 +409,10 @@ def main() -> int:
 
     # 3. kernels against their plain versions, at full size -----------------
     # 3a. reduction: int32, f32, bf16 x min, max, sum at n = 2^28, and a
-    # bf16 sum over an unaligned view (x[3:]), element by element
-    library = {"min": torch.amin, "max": torch.amax, "sum": torch.sum}
+    # bf16 sum over an unaligned view (x[3:]), element by element; the
+    # library's sum keeps x's dtype (torch.sum widens int32 to int64)
+    library = {"min": torch.amin, "max": torch.amax,
+               "sum": lambda x: torch.sum(x, dtype=x.dtype)}
 
     def reduce_case(x, op, case):
         cfg = modeled(ReductionTunable(x.numel(), op=op,
@@ -505,8 +508,9 @@ def main() -> int:
     emit("kernel", name="sweep_eval", case="mixed-invalid", points=wg.numel(),
          invalid_points=invalid, sizes=[p.size, 0], equal_plain=True)
 
-    # the dense lattice, timed; its bound counts the fast path's SASS
-    # instructions a point against the card's issue rate
+    # the dense lattice, timed; its bound counts the model's operations a
+    # point at the card's issue rate, and beside it the time the fast
+    # path's SASS instructions a point take at that rate
     side = torch.arange(1, SWEEP_SIDE + 1, dtype=torch.int32, device=dev)
     wg = side.repeat_interleave(SWEEP_SIDE)
     ts = side.repeat(SWEEP_SIDE)
@@ -517,10 +521,10 @@ def main() -> int:
     if not torch.equal(got, want):
         raise AssertionError("sweep kernel != plain version on the dense lattice")
     instr = point_instructions(table=p.warp is not None and p.NP <= 1024)
-    b, by = bound_ms(3 * 4 * n, instr * n, ISSUE_RATE)
+    b, by = bound_ms(3 * 4 * n, point_ops(p) * n, ISSUE_RATE)
     row = {"case": "dense-4096x4096", "n": n, "config": cfg,
            "max_abs_err": int((got.long() - want.long()).abs().max()),
-           "instr_per_point": instr,
+           "ops_per_point": point_ops(p), "instr_per_point": instr,
            "bytes_ms": 3 * 4 * n / HBM_BYTES_PER_S * 1e3,
            "issue_ms": instr * n / ISSUE_RATE * 1e3,
            "ms": time_ms(lambda: sweep_eval(wg, ts, p, **cfg), 20),

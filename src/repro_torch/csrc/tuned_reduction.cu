@@ -17,12 +17,12 @@
 //     in groups of W = min(V, the largest power of two dividing TS)
 //     elements: at step j thread t folds the group at chunk offset
 //     (j*WG + t)*W, its elements in order, so each step is one coalesced
-//     sweep.  When W = V a group is one vector load, or, where x is not
-//     16-byte aligned (a view such as x[1:] is contiguous), the two
-//     aligned vectors that hold it, funnel-shifted: the order of the fold
-//     does not depend on x's address.  When W < V (TS < V, an odd TS) the
-//     groups are read element by element.  Elements past n (the ragged
-//     tail) fold the monoid identity.
+//     sweep.  When W = V and x is 16-byte aligned a group is one vector
+//     load.  When W < V (TS < V, an odd TS), or where x is not 16-byte
+//     aligned (a view such as x[1:] is contiguous), the same groups are
+//     read element by element: the order of the fold does not depend on
+//     x's address.  Elements past n (the ragged tail) fold the monoid
+//     identity.
 //   * The block folds each warp with shuffles (__reduce_*_sync for int32,
 //     an xor butterfly for floats), then the warps' partials with one more
 //     butterfly in warp 0: no log2(WG) rounds of __syncthreads.
@@ -134,11 +134,10 @@ template <> struct Convert<__nv_bfloat16, float> {
 
 template <typename T> struct Vec { static constexpr int V = 16 / sizeof(T); };
 
-// how a group of V elements is read
+// how a group of W elements is read
 enum Path {
-  PATH_VEC = 0,     // x 16-byte aligned: one vector
-  PATH_SHIFT = 1,   // x misaligned by `mis` bytes: two aligned vectors, shifted
-  PATH_SCALAR = 2   // W < V: element by element
+  PATH_VEC = 0,     // W = V, x 16-byte aligned: one vector
+  PATH_SCALAR = 1   // W < V, or x misaligned: element by element
 };
 
 __device__ __forceinline__ uint4 ld_stream_v4(const void* p) {
@@ -147,27 +146,6 @@ __device__ __forceinline__ uint4 ld_stream_v4(const void* p) {
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "l"(p));
   return v;
-}
-
-// The 16 bytes at `p` (a group's first byte, `mis` bytes past the aligned
-// address below it).  PATH_SHIFT reads the two aligned vectors that hold
-// them, through L1, where the next thread's group finds its first one,
-// and funnel-shifts them into place.
-template <int PATH>
-__device__ __forceinline__ uint4 load_group(const char* p, int mis) {
-  if (PATH == PATH_VEC) return ld_stream_v4(p);
-  const uint4* a = reinterpret_cast<const uint4*>(p - mis);
-  const uint4 lo = __ldg(a), hi = __ldg(a + 1);
-  const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-  const int q = mis >> 2, r = 8 * (mis & 3);
-  uint32_t u[5];
-#pragma unroll
-  for (int i = 0; i < 5; ++i)                 // u[i] = w[i + q], q uniform
-    u[i] = q == 0 ? w[i] : q == 1 ? w[i + 1] : q == 2 ? w[i + 2] : w[i + 3];
-  return make_uint4(__funnelshift_r(u[0], u[1], r),
-                    __funnelshift_r(u[1], u[2], r),
-                    __funnelshift_r(u[2], u[3], r),
-                    __funnelshift_r(u[3], u[4], r));
 }
 
 // fold the V elements of one 16-byte vector, lowest address first
@@ -200,7 +178,7 @@ __device__ __forceinline__ A block_fold(A v, A* sh) {
 template <typename T, int OP, int PATH>
 __global__ void __launch_bounds__(1024)
 reduce_kernel(const T* __restrict__ x, long long n, int WG, int TS, int W,
-              int mis, typename Acc<T, OP>::type* __restrict__ partials,
+              typename Acc<T, OP>::type* __restrict__ partials,
               unsigned int* __restrict__ ticket, T* __restrict__ out) {
   using A = typename Acc<T, OP>::type;
   constexpr int V = Vec<T>::V;
@@ -212,7 +190,7 @@ reduce_kernel(const T* __restrict__ x, long long n, int WG, int TS, int W,
   const int steps = TS / W;
 
   A acc = Monoid<A, OP>::identity();
-  if (t < WG && PATH != PATH_SCALAR) {
+  if (t < WG && PATH == PATH_VEC) {
     // group j at element cb + (j*WG + t)*V, 16 bytes
     const char* p = reinterpret_cast<const char*>(x + cb + (long long)t * V);
     const long long stride = (long long)WG * V * sizeof(T);
@@ -222,7 +200,7 @@ reduce_kernel(const T* __restrict__ x, long long n, int WG, int TS, int W,
         uint4 v[UNROLL];
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u)
-          v[u] = load_group<PATH>(p + (j + u) * stride, mis);
+          v[u] = ld_stream_v4(p + (j + u) * stride);
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) acc = fold_vec<T, OP, A>(acc, v[u]);
       }
@@ -230,8 +208,7 @@ reduce_kernel(const T* __restrict__ x, long long n, int WG, int TS, int W,
     for (; j < steps; ++j) {                      // remainder and the tail
       const long long i = cb + ((long long)j * WG + t) * V;
       if (i + V <= n) {
-        acc = fold_vec<T, OP, A>(
-            acc, load_group<PATH>(reinterpret_cast<const char*>(x + i), mis));
+        acc = fold_vec<T, OP, A>(acc, ld_stream_v4(x + i));
       } else {
 #pragma unroll
         for (int k = 0; k < V; ++k)
@@ -241,7 +218,7 @@ reduce_kernel(const T* __restrict__ x, long long n, int WG, int TS, int W,
       }
     }
   } else if (t < WG) {
-    // groups of W < V elements, element by element
+    // groups of W elements, element by element
 #pragma unroll 4
     for (int j = 0; j < steps; ++j) {
       const long long i = cb + ((long long)j * WG + t) * W;
@@ -287,20 +264,17 @@ cudaError_t launch(const void* x, long long n, int WG, int TS, void* partials,
   const long long G = (n + (long long)WG * TS - 1) / ((long long)WG * TS);
   const int B = (WG + 31) / 32 * 32;
   const int W = (TS & -TS) < V ? (TS & -TS) : V;
-  const int mis = (int)(reinterpret_cast<uintptr_t>(x) & 15);
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const T* xt = static_cast<const T*>(x);
   A* pt = static_cast<A*>(partials);
   unsigned int* tk = static_cast<unsigned int*>(ticket);
   T* o = static_cast<T*>(out);
-  if (W < V)
-    reduce_kernel<T, OP, PATH_SCALAR><<<(unsigned)G, B, 0, stream>>>(
-        xt, n, WG, TS, W, mis, pt, tk, o);
-  else if (mis != 0)
-    reduce_kernel<T, OP, PATH_SHIFT><<<(unsigned)G, B, 0, stream>>>(
-        xt, n, WG, TS, W, mis, pt, tk, o);
-  else
+  if (W == V && aligned)
     reduce_kernel<T, OP, PATH_VEC><<<(unsigned)G, B, 0, stream>>>(
-        xt, n, WG, TS, W, mis, pt, tk, o);
+        xt, n, WG, TS, W, pt, tk, o);
+  else
+    reduce_kernel<T, OP, PATH_SCALAR><<<(unsigned)G, B, 0, stream>>>(
+        xt, n, WG, TS, W, pt, tk, o);
   return cudaGetLastError();
 }
 

@@ -7,10 +7,10 @@ The lattice is the card's, not the TPU's: ``threads`` a power of two
 from 64 to 1024, ``ept`` a power of two up to 16, no block covering more
 than the data.  The cost model takes the larger of two times, both
 derated while the card is not full of threads: three int32 arrays
-streamed at 3.35 TB/s, and ``INSTR_PER_POINT`` instructions a point at
-the card's issue rate times the share of it the kernel reaches
-(``_ISSUE_SHARE``); plus a per-block cost (``_BLOCK_US``) and one launch,
-all three constants fitted on the card.
+streamed at 3.35 TB/s, and the issue of each configuration's
+instructions (``_POINT_PS``: the kernel's instructions a point over the
+issue rate it reaches); plus a per-block cost (``_BLOCK_US``) and one
+launch, both constants fitted on the card.
 """
 
 from __future__ import annotations
@@ -23,19 +23,17 @@ import torch
 from ...core.search_space import Param, SearchSpace, powers_of_two
 from ...core.wave_model import WaveParams
 from ...tune import autotune
-from ..common import (HBM_BYTES_PER_S, ISSUE_RATE, LAUNCH_US, SMS,
-                      THREADS_PER_SM, as_device_tensor, generator,
-                      resolve_device, time_fn, tunable_device)
+from ..common import (HBM_BYTES_PER_S, LAUNCH_US, SMS, THREADS_PER_SM,
+                      as_device_tensor, generator, resolve_device, time_fn,
+                      tunable_device)
 from .kernel import sweep_kernel
-from .ref import SENTINEL, sweep_ref
+from .ref import SENTINEL, point_ops, sweep_ref
 
-# SASS instructions of one configuration on the kernel's fast path with
-# the gmt_eff table (the probe kernel), the share of the issue rate the
-# sweep reaches and a block's cost on its SM (scheduling, the table's
-# fill), fitted by tools/reduce_sweep_report.py on an H100 (the dense
-# 4096 x 4096 lattice at every launch shape, NP = 1024, warp = 32)
-INSTR_PER_POINT = 110
-_ISSUE_SHARE = 0.62
+# picoseconds of issue a configuration with the card full of threads, and
+# a block's cost on its SM (scheduling, the gmt_eff table's fill), fitted
+# by tools/reduce_sweep_report.py on an H100 (the dense 4096 x 4096
+# lattice at every launch shape, NP = 1024, warp = 32)
+_POINT_PS = 5.24
 _BLOCK_US = 0.17
 
 
@@ -56,8 +54,7 @@ def cost_model(cfg: Mapping[str, Any], *, n: int) -> float:
     blocks = -(-n // (4 * threads * ept))
     resident = min(1.0, blocks * threads / (SMS * THREADS_PER_SM))
     stream_us = 3 * 4 * n / (HBM_BYTES_PER_S / 1e6 * resident)
-    issue_us = INSTR_PER_POINT * n / (ISSUE_RATE / 1e6 * _ISSUE_SHARE
-                                      * resident)
+    issue_us = _POINT_PS * n / 1e6 / resident
     return max(stream_us, issue_us) + blocks * _BLOCK_US / SMS + LAUNCH_US
 
 
@@ -119,4 +116,4 @@ def sweep_eval(wg, ts, p: WaveParams, *, threads: int | None = None,
 
 
 __all__ = ["sweep_eval", "SweepEvalTunable", "tuning_space", "cost_model",
-           "sweep_ref", "sweep_kernel", "SENTINEL", "INSTR_PER_POINT"]
+           "sweep_ref", "sweep_kernel", "SENTINEL", "point_ops"]

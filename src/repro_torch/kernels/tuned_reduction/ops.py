@@ -32,13 +32,13 @@ from .ref import block_threads, group_width, reduce_chunked
 WG_VALUES = tuple(range(64, 1025, 32))
 _MAX_BLOCKS = 2**31 - 1
 _UNROLL = 4            # vector loads in flight a thread (the kernel's UNROLL)
-# device-memory latency under load, fitted by tools/reduce_sweep_report.py
-# on an H100 (int32 and bf16 at 2^28 over a grid of (WG, TS)); modeling
-# assumptions: a block's fixed cost (its folds, the ticket) and the last
-# block's time per partial read from L2 by each of its threads
+# device-memory latency under load, a wave's fixed cost (its blocks' folds
+# and tickets) and the last block's time per partial read from L2 by each
+# of its threads, fitted together by tools/reduce_sweep_report.py on an
+# H100 (int32 and bf16 at 2^28 over a grid of (WG, TS))
 _LATENCY_US = 1.35
-_BLOCK_US = 0.5
-_L2_US = 0.3
+_BLOCK_US = 0.7
+_L2_US = 0.25
 
 
 def tuning_space(n: int, dtype_bytes: int = 4) -> SearchSpace:

@@ -129,8 +129,7 @@ def test_sweep_kernel_on_a_dense_ragged_lattice(cuda):
 @pytest.mark.parametrize("op", ["min", "max", "sum"])
 def test_reduction_kernel_on_an_unaligned_view(cuda, dtype, offset, op):
     """x[offset:] is contiguous but not 16-byte aligned: the kernel reads
-    the same groups, in the same order, through the two aligned vectors
-    that hold each (or element by element where TS < the vector)."""
+    the same groups, in the same order, element by element."""
 
     x = _data(dtype, 2**20 + 17, cuda, seed=3)[offset:]
     assert x.is_contiguous() and x.data_ptr() % 16 != 0

@@ -18,7 +18,8 @@ Prints one JSON line per part and writes them all to ``--out`` (default
    kernel), with the gmt_eff table and with a constant GMT;
 3. ``reduce`` — the nine (dtype, op) cases at n = 2^28 with the cost
    model's (WG, TS), and a bf16 sum over an unaligned view, each beside
-   ``torch.amin`` / ``torch.amax`` / ``torch.sum`` on the same tensor.
+   ``torch.amin`` / ``torch.amax`` / ``torch.sum`` on the same tensor
+   (the sum in x's dtype: by default it widens int32 to int64).
    Times are CUDA events over bursts of back-to-back calls, the kernel
    and the library call in rotated turns, ROUNDS bursts each: the median
    and the least;
@@ -26,12 +27,17 @@ Prints one JSON line per part and writes them all to ``--out`` (default
    launch shape, for warp scheduling with the gmt_eff table (NP = 1024),
    the same with a division per point (NP = 1025), a constant GMT (no
    warp) and unaligned arrays (element by element), in rotated bursts;
+   its bound is the larger of its bytes and the model's operations a
+   point (``point_ops``) at the issue rate, and beside it the time its
+   SASS instructions take at that rate;
 5. ``fit``    — each cost model against the card: the reduction at a
    grid of (WG, TS) for int32 and bf16, measured beside modeled, and the
-   memory latency (``_LATENCY_US``) that best fits them; the sweep at
-   every launch shape of its lattice, fitted by least squares as an
-   issue time plus a cost per block on each SM: the share of the issue
-   rate it reaches (``_ISSUE_SHARE``) and that cost (``_BLOCK_US``).
+   memory latency, a block's fixed cost and the last block's time per
+   partial (``_LATENCY_US``, ``_BLOCK_US``, ``_L2_US``) that best fit
+   both; the sweep at every launch shape of its lattice, fitted by least
+   squares as an issue time plus a cost per block on each SM: the issue
+   time a point (``_POINT_PS``; and the share of the issue rate it
+   makes of the SASS count) and that cost (``_BLOCK_US``).
 
 The card's name and power limit come first.  Exits non-zero without a
 card, or if a kernel's result differs from its plain version.
@@ -103,6 +109,7 @@ def main() -> int:
     from repro_torch.kernels.common import HBM_BYTES_PER_S, ISSUE_RATE, SMS
     from repro_torch.kernels.sweep_eval import ops as sweep_ops
     from repro_torch.kernels.sweep_eval.kernel import point_instructions
+    from repro_torch.kernels.sweep_eval.ref import point_ops
     from repro_torch.kernels.tuned_reduction import ops as red_ops
     from repro_torch.tune import tune
 
@@ -141,7 +148,8 @@ def main() -> int:
     # 3. the reduction's nine cases and an unaligned view ------------------
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    library = {"min": torch.amin, "max": torch.amax, "sum": torch.sum}
+    library = {"min": torch.amin, "max": torch.amax,
+               "sum": lambda x: torch.sum(x, dtype=x.dtype)}
     for dtype in (torch.int32, torch.float32, torch.bfloat16):
         if dtype == torch.int32:
             x = torch.randint(-2**31, 2**31 - 1, (REDUCE_N,), generator=g,
@@ -198,42 +206,50 @@ def main() -> int:
     bytes_ms = 12 * n / HBM_BYTES_PER_S * 1e3
     issue_ms = instr * n / ISSUE_RATE * 1e3
     for name, t in rotated(runs).items():
+        ops_ms = point_ops(variants[name][0]) * n / ISSUE_RATE * 1e3
         emit("sweep", variant=name, n=n, config=cfg, ms=t["ms"],
-             least_ms=t["least_ms"], bytes_ms=bytes_ms, issue_ms=issue_ms,
-             bound_ms=max(bytes_ms, issue_ms),
-             of_bound=max(bytes_ms, issue_ms) / t["ms"],
+             least_ms=t["least_ms"], bytes_ms=bytes_ms, ops_ms=ops_ms,
+             bound_ms=max(bytes_ms, ops_ms),
+             of_bound=max(bytes_ms, ops_ms) / t["ms"],
+             table_issue_ms=issue_ms,
              modeled_ms=sweep_ops.cost_model(cfg, n=n) / 1e3)
 
     # 5. the cost models' fits ----------------------------------------------
+    measured = {}                          # (dtype bytes, WG, TS) -> us
     for dtype in (torch.int32, torch.bfloat16):
         x = torch.randint(-1000, 1000, (REDUCE_N,), generator=g,
                           device="cuda", dtype=torch.int32).to(dtype)
-        db = x.element_size()
-        measured = {}
         for WG, TS in FIT_GRID:
-            measured[(WG, TS)] = time_ms(
+            measured[(x.element_size(), WG, TS)] = time_ms(
                 lambda: red_ops.reduce_1d(x, op="max", WG=WG, TS=TS)) * 1e3
-        keep = red_ops._LATENCY_US
+        del x
+    names = ("_LATENCY_US", "_BLOCK_US", "_L2_US")
+    keep = tuple(getattr(red_ops, k) for k in names)
 
-        def misfit(lat):
-            red_ops._LATENCY_US = lat
-            return sum(math.log(red_ops.cost_model(
-                {"WG": w, "TS": t}, n=REDUCE_N, dtype_bytes=db) / us) ** 2
-                for (w, t), us in measured.items())
+    def misfit(consts):
+        for k, v in zip(names, consts):
+            setattr(red_ops, k, v)
+        return sum(math.log(red_ops.cost_model(
+            {"WG": w, "TS": t}, n=REDUCE_N, dtype_bytes=db) / us) ** 2
+            for (db, w, t), us in measured.items())
 
-        best = min((misfit(l / 20), l / 20) for l in range(2, 81))
-        red_ops._LATENCY_US = keep
+    model_misfit = misfit(keep)
+    best = min((misfit(c), c) for c in (
+        (lat / 20, blk / 20, l2 / 40) for lat in range(2, 81)
+        for blk in range(0, 41, 2) for l2 in range(0, 41, 2)))
+    misfit(keep)
+    for db in (4, 2):
         rows = [{"WG": w, "TS": t, "measured_us": us,
                  "modeled_us": red_ops.cost_model(
                      {"WG": w, "TS": t}, n=REDUCE_N, dtype_bytes=db)}
-                for (w, t), us in measured.items()]
+                for (b, w, t), us in measured.items() if b == db]
         fastest = min(rows, key=lambda r: r["measured_us"])
-        emit("fit", kernel="tuned_reduction", dtype=str(dtype)[6:],
-             op="max", n=REDUCE_N, grid=rows, fastest=fastest,
-             fastest_bytes_per_s=REDUCE_N * db / fastest["measured_us"] * 1e6,
-             latency_us=best[1], log_misfit=best[0],
-             model_latency_us=keep)
-        del x
+        emit("fit", kernel="tuned_reduction", dtype_bytes=db, op="max",
+             n=REDUCE_N, grid=rows, fastest=fastest,
+             fastest_bytes_per_s=REDUCE_N * db / fastest["measured_us"] * 1e6)
+    emit("fit", kernel="tuned_reduction", log_misfit=best[0],
+         **dict(zip(("latency_us", "block_us", "l2_us"), best[1])),
+         model_log_misfit=model_misfit, model=dict(zip(names, keep)))
     # t = issue + blocks / SMS * block_us, least squares over the shapes
     p = variants["table-NP1024"][0]
     rows = []
@@ -250,11 +266,11 @@ def main() -> int:
     issue_us = my - block_us * mx
     emit("fit", kernel="sweep_eval", n=n, grid=rows,
          fastest=min(rows, key=lambda r: r["measured_us"]),
-         instr_per_point=instr, issue_us=issue_us, block_us=block_us,
+         issue_us=issue_us, point_ps=issue_us * 1e6 / n, block_us=block_us,
+         instr_per_point=instr,
          issue_share=instr * n / (ISSUE_RATE / 1e6 * issue_us),
-         model_issue_share=sweep_ops._ISSUE_SHARE,
-         model_block_us=sweep_ops._BLOCK_US,
-         model_instr_per_point=sweep_ops.INSTR_PER_POINT)
+         model_point_ps=sweep_ops._POINT_PS,
+         model_block_us=sweep_ops._BLOCK_US)
 
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text("".join(json.dumps(ln) + "\n" for ln in lines))
