@@ -15,7 +15,10 @@ Each phase prints one JSON line:
    bound the fast path's SASS instructions a point (``cuobjdump``); 3c,
    the matmul, also gives each kernel's registers and spills from
    ptxas; 3d is flash attention at qwen1.5-4b's shape, with the registers,
-   spills and ptxas warnings of every bf16 instantiation;
+   spills and ptxas warnings of every bf16 instantiation, and an f32 case
+   at the same shape; each f32 row (3c and 3d) gives its kernel's
+   registers and spills (a spill fails the run) and the SM clock read
+   before and after its timing;
 4. ``tune``   — the tuning path: a TuningPlan (the §7 abstract platform
    with the sweep engine, the four kernel tunables with the measure
    engine) into a temporary cache, a second run that must hit, and
@@ -51,8 +54,9 @@ sys.path.insert(0, str(ROOT / "src"))
 REDUCE_N = 2**28
 SWEEP_SIDE = 4096                       # dense 4096 x 4096 lattice, 2^24 points
 SWEEP_CHECK_SIZE = 2**30
-# WG and TS of the sweep's mixed lattice: invalid (<= 0, clamped to 1 as the
-# plain version does), small, around NP and warp, and the int32 extremes
+# WG and TS of the sweep's mixed lattice: invalid (<= 0: TS gives no work
+# item, WG takes the kernel's signed path), small, around NP and warp, and
+# the int32 extremes
 SWEEP_EDGES = (-2**31, -7, -1, 0, 1, 2, 3, 31, 32, 33, 127, 128, 129, 1000,
                2**20, 2**30, 2**31 - 1)
 MM_BF16 = (8192, 8192, 8192)
@@ -77,7 +81,8 @@ FLASH_REL_L2 = 1e-2
 FLASH_CASES = (("bfloat16", 1, 20, 4096, 128, True, None),
                ("bfloat16", 1, 20, 4096, 128, True, 1024),
                ("bfloat16", 1, 20, 1024, 128, False, None),
-               ("float32", 1, 20, 1024, 64, True, None))
+               ("float32", 1, 20, 1024, 64, True, None),
+               ("float32", 1, 20, 4096, 128, True, None))
 # the model path: qwen1.5-4b, a forward at S = 4096, and a Server of 4
 # slots x 1024 context draining 4 requests of 512 + 16 tokens
 MODEL = "qwen1.5-4b"
@@ -104,11 +109,28 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}, default=str), flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip()
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def timed_f32(fn, iters: int) -> tuple[float, list[str]]:
+    """``time_ms`` of an f32 FMA kernel, with the SM clock that
+    ``nvidia-smi`` reads just before and just after: the f32 times have
+    moved between calls more than the clock-bound bf16 ones."""
+
+    before = nvidia_smi("clocks.sm")
+    ms = time_ms(fn, iters)
+    return ms, [before, nvidia_smi("clocks.sm")]
+
+
+def check_no_spills(name: str, usage: dict | None) -> None:
+    """An FMA kernel keeps its tiles in registers: a spill is a fault."""
+
+    if usage is None or usage.get("spill_stores", 0) or \
+            usage.get("spill_loads", 0):
+        raise AssertionError(f"{name}: ptxas usage {usage} (want no spills)")
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -224,10 +246,11 @@ def model_path(dev, gen, counters, flash_ms: float) -> dict:
             p_cut = {k: (tree_map(lambda t: t[:DEPTH_CUT].float(), v)
                          if k == "blocks" else v.float())
                      for k, v in params.items()}
+            before = flash.launches
             cmp = compare_last_logits(api_cut, plain_cut, p_cut, toks)
             d = cmp["max_abs_diff"]
             emit("model", part="forward_f32_cut", n_layers=DEPTH_CUT,
-                 S=FWD_S, **cmp)
+                 S=FWD_S, f32_flash_launches=flash.launches - before, **cmp)
             if not cmp["rel_l2"] <= FWD_REL_TOL:
                 raise AssertionError(f"flash vs plain forward: relative "
                                      f"error {cmp['rel_l2']} > {FWD_REL_TOL}")
@@ -303,6 +326,7 @@ def model_path(dev, gen, counters, flash_ms: float) -> dict:
             server = Server(api_cut, p_cut, **SERVE)
             reqs = [server.submit(p, max_new=MAX_NEW) for p in prompts]
             server.run_until_drained()
+            before = flash.launches
             seqs = [list(p) for p in prompts]
             decisive, equal, worst, gaps = ([0] * REQUESTS, [0] * REQUESTS,
                                             0.0, [])
@@ -337,6 +361,7 @@ def model_path(dev, gen, counters, flash_ms: float) -> dict:
                     worst = max(worst, deficit[r])
                     seqs[r].append(tok)
             emit("model", part="greedy_f32_cut", n_layers=DEPTH_CUT,
+                 f32_flash_launches=flash.launches - before,
                  ticks=server.ticks, decisive_compared=decisive,
                  equal_to_offline_argmax=equal, steps=MAX_NEW,
                  gap_threshold=GAP_MULT * d, max_deficit=worst,
@@ -560,11 +585,17 @@ def main() -> int:
         peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         bb, by = bound_ms((M * K + K * N + M * N) * a.element_size(),
                           2 * M * N * K, peak)
+        run = lambda: matmul_tuned(a, b_, **cfg)
+        if dtype == torch.float32:
+            check_no_spills(entry, usage)
+            ms, clocks = timed_f32(run, 10)
+        else:
+            ms, clocks = time_ms(run, 10), None
         row = {"case": f"{str(dtype)[6:]}-{M}x{N}x{K}", "config": cfg,
                "max_abs_err": float(diff.max()), "rel_l2": rel_l2,
                "tol": [tol, MM_REL_L2],
-               "ptxas": usage,
-               "ms": time_ms(lambda: matmul_tuned(a, b_, **cfg), 10),
+               "ptxas": usage, "sm_clock": clocks,
+               "ms": ms,
                "plain_ms": time_ms(lambda: matmul_ref(a, b_), 5),
                "library_ms": time_ms(lambda: torch.matmul(a, b_), 10),
                "bound_ms": bb, "bound_by": by}
@@ -618,12 +649,17 @@ def main() -> int:
                           4 * B * H * pairs * D, peak)
         entry = (f"fa_bf16ILi{cfg['block_k']}ELi{D}E" if dname == "bfloat16"
                  else f"fa_f32ILi{cfg['block_q']}ELi{cfg['block_k']}ELi{D}E")
+        usage = next((u for n_, u in fa_usage.items() if entry in n_), None)
+        if dname == "float32":
+            check_no_spills(entry, usage)
+            ms, clocks = timed_f32(run, 10)
+        else:
+            ms, clocks = time_ms(run, 10), None
         row = {"case": f"{dname}-S{S}-D{D}-causal={causal}-window={window}",
                "config": cfg, "max_abs_err": float(diff.max()),
-               "ptxas": next((u for n_, u in fa_usage.items() if entry in n_),
-                             None),
+               "ptxas": usage, "sm_clock": clocks,
                "rel_l2": rel_l2, "tol": [atol, rtol, FLASH_REL_L2],
-               "ms": time_ms(run, 10),
+               "ms": ms,
                "plain_ms": time_ms(plain, 3, warmup=1),
                "library_ms": time_ms(library, 10),
                "bound_ms": bb, "bound_by": by}

@@ -121,16 +121,24 @@ def model_time_torch(p: WaveParams, WG, TS, *,
 
     Computes in ``dtype``: int64 by default (exact for every lattice the
     repo tunes); ``torch.int32`` reproduces the int32 arithmetic of the
-    sweep-eval kernel, wraparound included.  Configurations with no work
-    item get ``iinfo(dtype).max``."""
+    sweep-eval kernel, wraparound included.
 
-    WG = torch.as_tensor(WG).to(dtype).clamp(min=1)
-    TS = torch.as_tensor(TS, device=WG.device).to(dtype).clamp(min=1)
+    Invalid points follow the exact engine (``core/sweep.py``
+    ``sweep_times``): a configuration with no work item (TS <= 0, or
+    ``size // TS < 1``) gets ``iinfo(dtype).max``; WG is clamped to 1
+    only as the divisor of ``items``, and enters ``min(WG, items)`` and
+    the group times as it is."""
+
+    WG = torch.as_tensor(WG).to(dtype)
+    TS = torch.as_tensor(TS, device=WG.device).to(dtype)
     NP, GMT = p.NP, p.GMT
 
+    has_ts = TS >= 1
+    TS = torch.where(has_ts, TS, 1)     # a defined division; masked below
     items = _fdiv(torch.full_like(TS, p.size), TS)
-    full = _fdiv(items, WG)
-    rem = torch.remainder(items, WG)
+    WG_div = WG.clamp(min=1)
+    full = _fdiv(items, WG_div)
+    rem = torch.remainder(items, WG_div)
     # single short group when items < WG
     short = full == 0
     full = torch.where(short, 0, full)
@@ -173,7 +181,7 @@ def model_time_torch(p: WaveParams, WG, TS, *,
 
     t = device_t + (g_total if p.kind == "minimum" else 0)
     # invalid configs (no work items) get the +inf-like sentinel
-    return torch.where(items >= 1, t, torch.iinfo(dtype).max)
+    return torch.where(has_ts & (items >= 1), t, torch.iinfo(dtype).max)
 
 
 __all__ = ["WaveParams", "model_time", "model_time_torch"]

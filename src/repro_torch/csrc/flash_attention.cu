@@ -71,12 +71,39 @@
 // that instantiation (C7512, no spill); block_k = 64 at D = 128 (112) runs
 // pipelined and is the faster tile.
 //
-// f32: on the FMA units (no TF32), four threads per query row, each holding
-// a quarter of D (interleaved, so K/V reads are conflict-free broadcasts);
-// scores are reduced with two shuffles and the online softmax steps over 8
-// keys at a time; K and V staged in shared memory by every thread.  Each
-// (block_q, block_k, D) in {64, 128} x {32, 64, 128} x {64, 128} is a
-// template instantiation.
+// f32: on the FMA units (no TF32; the bound is 67 TFLOP/s), both products
+// register-tiled, with the online softmax between them.  Its predecessor
+// (four threads a row) read one float of K or V from shared memory
+// per FFMA and staged K/V synchronously; here:
+//   * S = Q.K^T as an outer product: a thread owns 8 query rows and
+//     block_k / 16 keys; Q (once) and K are staged row-major with a
+//     16-byte-chunk XOR swizzle, and a d step of 4 reads 8 + block_k / 16
+//     float4 for 32 block_k / 16 FFMAs, each read a broadcast or a
+//     conflict-free pair of wavefronts;
+//   * online softmax: a row's 16 threads (a half-warp) reduce its max by
+//     shuffles; scores are scaled by scale * log2(e) once (an FMUL) and
+//     2^(s - m) is one FADD and one MUFU.EX2 (ex2.approx holds the f32
+//     tolerance: its relative error is ~2^-22).  The bf16 path folds the
+//     scale into one FFMA instead; here the row's largest score then gave
+//     2^(rounding error), not exactly 1, and a one-hot row (one visible
+//     key) was no longer V's row bit for bit.  The row sum stays a
+//     per-thread part until the epilogue; the per-element mask only on
+//     k-blocks that cross the diagonal or the window's edge; the k-loop
+//     over the first to the last relevant k-block only;
+//   * O += P.V as a second outer product: P goes through shared memory
+//     (the half-warp's own rows, so __syncwarp orders it), a thread owns
+//     8 rows x D / 16 columns of O in registers, and a step of 4 keys reads
+//     8 + D / 16 float4 for 32 D / 16 FFMAs;
+//   * overlap: K and V of the next k-block are copied by 16-byte cp.async
+//     into the other stage of a two-stage ring while this one computes; one
+//     barrier a k-block;
+//   * the heaviest q-blocks of every head first, as the bf16 grid.
+// Threads: 16 per 8 query rows, so 256 at block_q = 128 and 128 at 64.
+// Each (block_q, block_k, D) in {64, 128} x {32, 64} x {64, 128} is a
+// template instantiation.  ptxas gives a thread 160-224 registers (with a
+// minimum of one block an SM stated: left to its own choice it capped some
+// instantiations at 128 and spilled), so a block of 256 threads has an SM
+// to itself; two of 128 share one where their shared memory allows.
 //
 // The mask value is finite (-0.7 * FLT_MAX, as the TPU kernel's MASK_VALUE):
 // with -inf the first fully masked block would give exp(-inf - -inf) = NaN.
@@ -100,14 +127,6 @@ constexpr int DT_F32 = 1, DT_BF16 = 2;
 struct Mask {
   int causal, has_window, window;
 
-  // the TPU kernel's pl.when(relevant): any (q, k) pair of the two blocks
-  // in range?
-  __device__ __forceinline__ bool block_relevant(int q_lo, int q_hi, int k_lo,
-                                                 int k_hi) const {
-    if (causal && k_lo > q_hi) return false;
-    if (has_window && k_hi < q_lo - window + 1) return false;
-    return true;
-  }
   __device__ __forceinline__ bool visible(int qi, int ki) const {
     if (causal && ki > qi) return false;
     if (has_window && ki < qi - window + 1) return false;
@@ -452,119 +471,255 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH,
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// f32: FMA units, four threads per query row
+// f32: FMA units, register-tiled S = Q.K^T and O += P.V
 // ---------------------------------------------------------------------------
 
-constexpr int TPR = 4;       // threads per query row
-constexpr int CHUNK = 8;     // keys per online-softmax step
+namespace ffma {
+
+constexpr int ROWS = 8;            // query rows a thread
+constexpr int TPR = 16;            // threads sharing those rows: a half-warp
+constexpr int STAGES = 2;          // the K/V ring
 
 template <int BQ, int BK, int D>
-struct F32Tile {
-  static constexpr int THREADS = BQ * TPR;
-  static constexpr size_t smem = (size_t)(2 * BK * D) * sizeof(float);
+struct Tile {
+  static constexpr int RG = BQ / ROWS;               // row groups
+  static constexpr int THREADS = RG * TPR;           // 256 or 128
+  static constexpr int KEYS = BK / TPR;              // keys a thread in S
+  static constexpr int G = D / 64;                   // float4 columns of O a thread
+  static constexpr int Q_FLOATS = BQ * D, KV_FLOATS = BK * D, P_FLOATS = BQ * BK;
+  static constexpr size_t smem = (size_t)(Q_FLOATS + STAGES * 2 * KV_FLOATS + P_FLOATS) * 4;
+  static_assert(smem <= 232448, "tile exceeds 227 KB");
+  static_assert(D / 4 >= 8 && BK / 4 >= 8, "a row must span the 8-chunk swizzle");
 };
 
+// Float offset of (row, 16-byte chunk ch) in a tile of rows W floats wide:
+// the chunk is XORed with row % 8, so the eight rows of an atom put any
+// one chunk on eight different bank groups.
+template <int W>
+__device__ __forceinline__ int sw(int row, int ch) {
+  return row * W + ((ch ^ (row & 7)) << 2);
+}
+
+__device__ __forceinline__ float half_max(float x) {
+#pragma unroll
+  for (int o = 8; o >= 1; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float half_sum(float x) {
+#pragma unroll
+  for (int o = 8; o >= 1; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// `rows` rows of D floats from global `src` (row stride D) into the
+// swizzled tile `dst`, 16 bytes a cp.async
+template <int W, int THREADS>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src, int rows) {
+  for (int v = threadIdx.x; v < rows * (W / 4); v += THREADS) {
+    const int r = v / (W / 4), ch = v % (W / 4);
+    sm90::cp_async16(dst + sw<W>(r, ch), src + (size_t)r * W + 4 * ch);
+  }
+}
+
+// Thread t of a block is row group rg = t / 16 and lane c = t % 16 of its
+// half-warp.  It owns query rows rg + RG i (i < 8) of the q-block; in S,
+// keys c + 16 j (j < BK / 16) of the k-block; in O, the float4 columns
+// 4 c + 64 g (g < D / 64).  So:
+//   * S: a d4 step reads 8 float4 of Q (the warp's two row groups, each a
+//     broadcast; rows rg and rg + 1 differ in row % 8, so swizzled they
+//     sit on different banks) and BK / 16 float4 of K (16 consecutive
+//     keys, two wavefronts) for 32 BK / 16 FFMAs;
+//   * O += P.V: a step of 4 keys reads 8 float4 of P (broadcast, as Q)
+//     and 4 D / 64 float4 of V (16 consecutive chunks of a key's row) for
+//     32 D / 16 FFMAs;
+//   * the half-warp holds a row's max and sum by shuffles, and P goes
+//     through shared memory rows that only its own warp writes and reads,
+//     so __syncwarp orders it.
 template <int BQ, int BK, int D>
-__global__ void __launch_bounds__(F32Tile<BQ, BK, D>::THREADS)
+__global__ void __launch_bounds__(Tile<BQ, BK, D>::THREADS, 1)
 fa_f32(const float* __restrict__ Q, const float* __restrict__ K,
        const float* __restrict__ V, float* __restrict__ O, int S,
-       float scale, Mask mask) {
-  using T = F32Tile<BQ, BK, D>;
-  constexpr int DS = D / TPR;    // this thread's d = i * TPR + part
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);   // [BK][D]
-  float* Vs = Ks + BK * D;                      // [BK][D]
+       float scale_log2, Mask mask) {
+  using T = Tile<BQ, BK, D>;
+  constexpr int RG = T::RG, KEYS = T::KEYS, G = T::G;
+  extern __shared__ __align__(128) float smem_f[];
+  float* Qs = smem_f;                               // [BQ][D], swizzled
+  float* ring = Qs + T::Q_FLOATS;                   // STAGES x (K, V) [BK][D]
+  float* Ps = ring + STAGES * 2 * T::KV_FLOATS;     // [BQ][BK], swizzled
 
-  const int qb = S / BQ - 1 - (int)blockIdx.x;
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const int part = threadIdx.x % TPR;
-  const int q_lo = qb * BQ, q_hi = q_lo + BQ - 1;
-  const int qi = q_lo + threadIdx.x / TPR;
+  const int rg = threadIdx.x / TPR, c = threadIdx.x % TPR;
+  // the latest (most loaded, under the causal mask) q-blocks of every head
+  // first: x is the head, the fastest-varying index of the launch order
+  const int q_lo = ((int)gridDim.y - 1 - (int)blockIdx.y) * BQ;
+  const size_t base = (size_t)blockIdx.x * S * D;
+  int kb0, n;
+  mask.k_blocks(q_lo, q_lo + BQ - 1, S, BK, kb0, n);
 
-  float q[DS], o[DS];
+  float4 o[ROWS][G];
+  float m[ROWS], l[ROWS];
 #pragma unroll
-  for (int i = 0; i < DS; ++i) {
-    q[i] = Q[base + (size_t)qi * D + i * TPR + part];
-    o[i] = 0.f;
-  }
-  float m = MASK_VALUE, l = 0.f;
-
-  for (int kb = 0; kb < S / BK; ++kb) {
-    const int k_lo = kb * BK;
-    if (!mask.block_relevant(q_lo, q_hi, k_lo, k_lo + BK - 1)) continue;
-    __syncthreads();
-    const float4* kg = reinterpret_cast<const float4*>(K + base + (size_t)k_lo * D);
-    const float4* vg = reinterpret_cast<const float4*>(V + base + (size_t)k_lo * D);
-    for (int i = threadIdx.x; i < BK * D / 4; i += T::THREADS) {
-      reinterpret_cast<float4*>(Ks)[i] = kg[i];
-      reinterpret_cast<float4*>(Vs)[i] = vg[i];
-    }
-    __syncthreads();
-
-    for (int j0 = 0; j0 < BK; j0 += CHUNK) {
-      float s[CHUNK];
-      float mx = MASK_VALUE;
+  for (int i = 0; i < ROWS; ++i) {
+    m[i] = MASK_VALUE;
+    l[i] = 0.f;
 #pragma unroll
-      for (int c = 0; c < CHUNK; ++c) {
-        const float* kr = Ks + (j0 + c) * D + part;
-        float acc = 0.f;
-#pragma unroll
-        for (int i = 0; i < DS; ++i) acc = fmaf(q[i], kr[i * TPR], acc);
-        acc = quad_sum(acc);     // the row's four threads agree bit for bit
-        s[c] = mask.visible(qi, k_lo + j0 + c) ? acc * scale : MASK_VALUE;
-        mx = fmaxf(mx, s[c]);
-      }
-      const float mn = fmaxf(m, mx);
-      const float alpha = expf(m - mn);
-      m = mn;
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < CHUNK; ++c) {
-        s[c] = mask.visible(qi, k_lo + j0 + c) ? expf(s[c] - mn) : 0.f;
-        rs += s[c];
-      }
-      l = l * alpha + rs;
-#pragma unroll
-      for (int i = 0; i < DS; ++i) {
-        float acc = o[i] * alpha;
-#pragma unroll
-        for (int c = 0; c < CHUNK; ++c)
-          acc = fmaf(s[c], Vs[(j0 + c) * D + i * TPR + part], acc);
-        o[i] = acc;
-      }
-    }
+    for (int g = 0; g < G; ++g) o[i][g] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  const float inv = 1.f / (l == 0.f ? 1.f : l);
-#pragma unroll
-  for (int i = 0; i < DS; ++i) O[base + (size_t)qi * D + i * TPR + part] = o[i] * inv;
-}
+  auto load_kv = [&](int i) {
+    float* st = ring + (i % STAGES) * 2 * T::KV_FLOATS;
+    const size_t key = base + (size_t)(kb0 + i) * BK * D;
+    copy_rows<D, T::THREADS>(st, K + key, BK);
+    copy_rows<D, T::THREADS>(st + T::KV_FLOATS, V + key, BK);
+    sm90::cp_async_commit();
+  };
+  if (n > 0) {
+    copy_rows<D, T::THREADS>(Qs, Q + base + (size_t)q_lo * D, BQ);
+    load_kv(0);                                    // one group: Q and k-block 0
+  }
 
-template <typename Kernel>
-cudaError_t grant_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+  for (int it = 0; it < n; ++it) {
+    sm90::cp_async_wait<0>();
+    // the one barrier of a k-block: every thread's copies of it landed,
+    // and every thread is done with k-block it - 1, whose stage (and P)
+    // the next loads (and this block's softmax) overwrite
+    __syncthreads();
+    if (it + 1 < n) load_kv(it + 1);
+    const float* Ks = ring + (it % STAGES) * 2 * T::KV_FLOATS;
+    const float* Vs = Ks + T::KV_FLOATS;
+    const int k_lo = (kb0 + it) * BK;
+
+    // S = Q . K^T for this thread's ROWS x KEYS scores
+    float s[ROWS][KEYS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d4 = 0; d4 < D / 4; ++d4) {
+      float4 kf[KEYS];
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(Ks + sw<D>(c + 16 * j, d4));
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        const float4 qf = *reinterpret_cast<const float4*>(Qs + sw<D>(rg + RG * i, d4));
+#pragma unroll
+        for (int j = 0; j < KEYS; ++j) {
+          s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+          s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+          s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+          s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
+        }
+      }
+    }
+
+    // scores in units of log2: s scale log2(e), one FMUL each, so the
+    // row's largest score gives exactly 2^0 = 1 below; the per-element
+    // mask only where the k-block crosses the diagonal or the window's edge
+    const bool edge = !mask.all_visible(q_lo, q_lo + BQ - 1, k_lo, k_lo + BK - 1);
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j)
+        s[i][j] = edge && !mask.visible(q_lo + rg + RG * i, k_lo + c + 16 * j)
+                      ? MASK_VALUE : s[i][j] * scale_log2;
+
+    // online softmax: p = 2^(s - m), one FADD and one MUFU.EX2 a score; m
+    // in log2 units; l is this thread's part of the row sum
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < KEYS; ++j) mx = fmaxf(mx, s[i][j]);
+      const float mn = fmaxf(m[i], half_max(mx));
+      const float alpha = ex2(m[i] - mn);
+      m[i] = mn;
+      // a row that has seen no key yet (m still MASK_VALUE) subtracts 0,
+      // so its masked scores give 2^MASK_VALUE = 0
+      const float b = mn == MASK_VALUE ? 0.f : mn;
+      l[i] *= alpha;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        o[i][g].x *= alpha; o[i][g].y *= alpha; o[i][g].z *= alpha; o[i][g].w *= alpha;
+      }
+      const int row = rg + RG * i;
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j) {
+        const float p = ex2(s[i][j] - b);
+        l[i] += p;
+        const int key = c + 16 * j;
+        Ps[sw<BK>(row, key >> 2) + (key & 3)] = p;
+      }
+    }
+    __syncwarp();
+
+    // O += P . V
+#pragma unroll 2
+    for (int k4 = 0; k4 < BK / 4; ++k4) {
+      float4 pf[ROWS];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+        pf[i] = *reinterpret_cast<const float4*>(Ps + sw<BK>(rg + RG * i, k4));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float4 vf[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          vf[g] = *reinterpret_cast<const float4*>(Vs + sw<D>(4 * k4 + kk, c + 16 * g));
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i) {
+          const float p = lane_of(pf[i], kk);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            o[i][g].x = fmaf(p, vf[g].x, o[i][g].x);
+            o[i][g].y = fmaf(p, vf[g].y, o[i][g].y);
+            o[i][g].z = fmaf(p, vf[g].z, o[i][g].z);
+            o[i][g].w = fmaf(p, vf[g].w, o[i][g].w);
+          }
+        }
+      }
+    }
+  }
+
+  // rows with no visible key have l == 0 and o == 0: exact zeros
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const float li = half_sum(l[i]);
+    const float inv = 1.f / (li == 0.f ? 1.f : li);
+    float* dst = O + base + (size_t)(q_lo + rg + RG * i) * D + 4 * c;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      *reinterpret_cast<float4*>(dst + 64 * g) =
+          make_float4(o[i][g].x * inv, o[i][g].y * inv, o[i][g].z * inv, o[i][g].w * inv);
+  }
 }
 
 template <int BQ, int BK, int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int BH,
-                       int S, float scale, Mask mask, cudaStream_t s) {
-  using T = F32Tile<BQ, BK, D>;
-  cudaError_t err = grant_smem(fa_f32<BQ, BK, D>, T::smem);
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int S,
+                   float scale, Mask mask, cudaStream_t s) {
+  using T = Tile<BQ, BK, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_f32<BQ, BK, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::smem);
   if (err != cudaSuccess) return err;
-  fa_f32<BQ, BK, D><<<dim3(S / BQ, BH), T::THREADS, T::smem, s>>>(
+  fa_f32<BQ, BK, D><<<dim3(BH, S / BQ), T::THREADS, T::smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, scale, mask);
+      static_cast<const float*>(v), static_cast<float*>(o), S, scale * LOG2E, mask);
   return cudaGetLastError();
 }
+
+}  // namespace ffma
 
 }  // namespace
 
 // q, k, v, o: (BH, S, D) contiguous, 16-byte aligned, all of one dtype
 // (1 = f32, 2 = bf16); S divisible by bq and bk; window used only when
 // has_window (0 <= window <= S).  bf16 tiles: bq = 128, bk in {64, 128};
-// f32 tiles: {64, 128} x {32, 64, 128}; D in {64, 128} for both.  Returns
+// f32 tiles: {64, 128} x {32, 64}; D in {64, 128} for both.  Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a shape or tile that
 // was not compiled or operands TMA cannot describe.
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
@@ -587,10 +742,9 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
   if (dtype != DT_F32) return (int)cudaErrorInvalidValue;
 #define FA_CASE(BQ, BK, DD)                                                    \
   if (bq == BQ && bk == BK && D == DD)                                         \
-    return (int)launch_f32<BQ, BK, DD>(q, k, v, o, BH, S, scale, mask, s);
+    return (int)ffma::launch<BQ, BK, DD>(q, k, v, o, BH, S, scale, mask, s);
 #define FA_CASES(DD)                                                           \
-  FA_CASE(64, 32, DD) FA_CASE(64, 64, DD) FA_CASE(64, 128, DD)                 \
-  FA_CASE(128, 32, DD) FA_CASE(128, 64, DD) FA_CASE(128, 128, DD)
+  FA_CASE(64, 32, DD) FA_CASE(64, 64, DD) FA_CASE(128, 32, DD) FA_CASE(128, 64, DD)
   FA_CASES(64)
   FA_CASES(128)
 #undef FA_CASES

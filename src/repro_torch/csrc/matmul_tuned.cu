@@ -37,13 +37,28 @@
 // memory idle.  Blocks take their tiles in groups of 16 along M, so the
 // blocks that run together share their A and B panels in L2.
 //
-// f32: a 16 x 16 thread grid, each thread computing a (bm/16) x (bn/16)
-// block of outputs with fmaf — the f32 FMA path, not TF32, so the f32
-// tolerance of the reference holds.  A is staged transposed (padded by one
-// column) so each k step reads one broadcast column of A and one row of B.
-// Each (bm, bn, bk) in {64, 128} x {64, 128} x {32, 64} is a template
-// instantiation; shared memory is dynamic (up to 65 KB for 128x128x64,
-// above the 48 KB default, granted with cudaFuncSetAttribute).
+// f32: on the FMA units (fmaf, not TF32, so the f32 tolerance of the
+// reference holds), 256 threads in a 16 x 16 grid, each computing a
+// (bm/16) x (bn/16) block of outputs (8 x 8 at 128 x 128) in registers.
+// Its predecessor made 16 LDS.32 reads for 64 FFMAs, the ratio at which
+// the shared-memory pipe saturates, and staged each k-tile synchronously.  Here:
+//   * vector reads: A is kept row-major (rows padded by 16 bytes) and read
+//     as float4 along k, four k steps of a row at once; B row-major and
+//     read as float4 along n; 16 LDS.128 per 256 FFMAs at 128 x 128, each
+//     a single conflict-free or broadcast wavefront (see mm_f32);
+//   * fragments double-buffered in registers: the next k step's float4
+//     are read while this step's FFMAs run;
+//   * a cp.async ring: both operands go to shared memory as 16-byte
+//     cp.async copies (.cg, no registers on the way), STAGES k-tiles deep,
+//     the deepest ring that lets two blocks share an SM (at least 2; the
+//     128 x 128 tiles take one block an SM for their registers), with
+//     the next STAGES - 1 k-tiles in flight while one computes; one
+//     barrier a k-tile;
+//   * float4 epilogue stores.
+// Each output's sum is one sequential fmaf chain over k, as before.  Each
+// (bm, bn, bk) in {64, 128} x {64, 128} x {32, 64} is a template
+// instantiation; shared memory is dynamic, granted with
+// cudaFuncSetAttribute.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -55,7 +70,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;    // the f32 kernel
 constexpr int DT_F32 = 1, DT_BF16 = 2;
 
 // ---- bf16: TMA ring + warp-specialised wgmma ---------------------------------
@@ -212,77 +226,169 @@ cudaError_t launch(const void* a, const void* b, void* c, int M, int N, int K,
 
 // ---- f32: FMA units -------------------------------------------------------------
 
+namespace ffma {
+
+constexpr int THREADS = 256;                  // a 16 x 16 grid of threads
+constexpr int SMEM_PAIR = 115712;             // the most each of two blocks on an SM may have
+
 template <int BM, int BN, int BK>
-struct F32Tile {
-  static constexpr int LDA = BM + 1, LDB = BN;
-  static constexpr size_t smem = (size_t)(BK * LDA + BK * LDB) * sizeof(float);
+struct Tile {
+  static constexpr int LDA = BK + 4;          // A row-major, rows padded by 16 bytes
+  static constexpr int A_FLOATS = BM * LDA, B_FLOATS = BK * BN;
+  static constexpr int STAGE_BYTES = (A_FLOATS + B_FLOATS) * 4;
+  // the deepest ring that still lets two blocks share an SM, never below 2
+  static constexpr int STAGES = SMEM_PAIR / STAGE_BYTES < 2 ? 2 : SMEM_PAIR / STAGE_BYTES;
+  static constexpr size_t smem = (size_t)STAGES * STAGE_BYTES;
+  static constexpr int TM = BM / 16, TN = BN / 16;   // outputs a thread
+  // two blocks an SM where the ring allows and 128 registers a thread hold
+  // the accumulators (32 or fewer outputs a thread; the 8 x 8 of the
+  // 128 x 128 tile would spill at that cap and takes one block an SM)
+  static constexpr int MIN_BLOCKS = smem <= SMEM_PAIR && TM * TN <= 32 ? 2 : 1;
+  static constexpr int A_CHUNKS = BM * BK / 4 / THREADS, B_CHUNKS = BK * BN / 4 / THREADS;
+  static_assert(smem <= 227 * 1024, "ring exceeds 227 KB");
+  static_assert(A_CHUNKS >= 1 && B_CHUNKS >= 1 && TN % 4 == 0, "tile too small");
 };
 
+// Copies k-tile kt of A (BM x BK) and B (BK x BN) into one stage, 16 bytes
+// a cp.async, consecutive threads on consecutive chunks of a row.
 template <int BM, int BN, int BK>
-__global__ void __launch_bounds__(THREADS)
-mm_f32(const float* __restrict__ A, const float* __restrict__ B,
-       float* __restrict__ C, int M, int N, int K) {
-  using T = F32Tile<BM, BN, BK>;
-  constexpr int TM = BM / 16, TN = BN / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);   // [BK][LDA], A transposed
-  float* Bs = As + BK * T::LDA;                 // [BK][LDB]
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
+__device__ __forceinline__ void load_stage(float* st, const float* A, const float* B,
+                                           int row0, int col0, int kt, int N, int K) {
+  using T = Tile<BM, BN, BK>;
+  float* As = st;
+  float* Bs = st + T::A_FLOATS;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int v = threadIdx.x; v < BM * BK; v += THREADS) {
-      const int r = v / BK, c = v % BK;
-      As[c * T::LDA + r] = A[(size_t)(row0 + r) * K + k0 + c];
-    }
-    for (int v = threadIdx.x; v < BK * BN; v += THREADS) {
-      const int r = v / BN, c = v % BN;
-      Bs[r * T::LDB + c] = B[(size_t)(k0 + r) * N + col0 + c];
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk * T::LDA + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk * T::LDB + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int c = 0; c < T::A_CHUNKS; ++c) {
+    const int v = threadIdx.x + c * THREADS;
+    const int r = v / (BK / 4), ch = v % (BK / 4);
+    sm90::cp_async16(As + r * T::LDA + 4 * ch,
+                     A + (size_t)(row0 + r) * K + (size_t)kt * BK + 4 * ch);
   }
 #pragma unroll
+  for (int c = 0; c < T::B_CHUNKS; ++c) {
+    const int v = threadIdx.x + c * THREADS;
+    const int r = v / (BN / 4), ch = v % (BN / 4);
+    sm90::cp_async16(Bs + r * BN + 4 * ch,
+                     B + (size_t)(kt * BK + r) * N + col0 + 4 * ch);
+  }
+}
+
+// Thread (ty, tx) owns rows ty + 16 i (i < TM) and the float4 columns
+// 64 g + 4 tx .. + 3 (g < TN / 4) of the block's tile.  A warp is a 4 x 8
+// patch of the grid (warps 4 deep, 2 wide), so a warp's LDS.128 of A
+// reads 4 rows (padded apart onto distinct banks) and one of B 8
+// consecutive float4: each is one shared-memory wavefront.  Per 4 k steps
+// a thread reads TM float4 of A (4 k values of each of its rows) and
+// 4 * TN / 4 float4 of B for 4 TM TN FFMAs: 16 LDS.128 for 256 FFMAs at
+// the 128 x 128 tile, against 64 LDS.32 in a column-by-column kernel.
+template <int BM, int BN, int BK>
+__global__ void __launch_bounds__(THREADS, (Tile<BM, BN, BK>::MIN_BLOCKS))
+mm_f32(const float* __restrict__ A, const float* __restrict__ B,
+       float* __restrict__ C, int M, int N, int K) {
+  using T = Tile<BM, BN, BK>;
+  constexpr int TM = T::TM, TG = T::TN / 4;
+  extern __shared__ __align__(128) float smem_f[];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ty = (warp / 2) * 4 + lane / 8, tx = (warp % 2) * 8 + lane % 8;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int KT = K / BK;
+
+  float4 acc[TM][TG];
+#pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j)
-      C[(size_t)(row0 + ty + 16 * i) * N + col0 + tx + 16 * j] = acc[i][j];
+    for (int g = 0; g < TG; ++g) acc[i][g] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // fill all but one stage of the ring; every step commits one group (empty
+  // past the last k-tile), so "STAGES - 2 groups in flight" always means
+  // "k-tile kt has landed"
+#pragma unroll
+  for (int s = 0; s < T::STAGES - 1; ++s) {
+    if (s < KT) load_stage<BM, BN, BK>(smem_f + s * (T::A_FLOATS + T::B_FLOATS), A, B,
+                                       row0, col0, s, N, K);
+    sm90::cp_async_commit();
+  }
+
+  for (int kt = 0; kt < KT; ++kt) {
+    sm90::cp_async_wait<T::STAGES - 2>();
+    // one barrier a k-tile: every thread's copies of tile kt are visible,
+    // and every thread is done with tile kt - 1, whose stage is refilled now
+    __syncthreads();
+    const int next = kt + T::STAGES - 1;
+    if (next < KT)
+      load_stage<BM, BN, BK>(smem_f + (next % T::STAGES) * (T::A_FLOATS + T::B_FLOATS), A, B,
+                             row0, col0, next, N, K);
+    sm90::cp_async_commit();
+
+    const float* As = smem_f + (kt % T::STAGES) * (T::A_FLOATS + T::B_FLOATS);
+    const float* Bs = As + T::A_FLOATS;
+    // fragments double-buffered in registers: k step k + 1's B (and, every
+    // fourth step, the next four steps' A) are read while step k's FFMAs run
+    float4 a[2][TM], b[2][TG];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      a[0][i] = *reinterpret_cast<const float4*>(As + (ty + 16 * i) * T::LDA);
+#pragma unroll
+    for (int g = 0; g < TG; ++g)
+      b[0][g] = *reinterpret_cast<const float4*>(Bs + 64 * g + 4 * tx);
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const int k4 = k / 4, kk = k % 4;
+      if (k + 1 < BK) {
+#pragma unroll
+        for (int g = 0; g < TG; ++g)
+          b[(k + 1) & 1][g] =
+              *reinterpret_cast<const float4*>(Bs + (k + 1) * BN + 64 * g + 4 * tx);
+      }
+      if (kk == 0 && k + 4 < BK) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          a[(k4 + 1) & 1][i] =
+              *reinterpret_cast<const float4*>(As + (ty + 16 * i) * T::LDA + k + 4);
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4& ai = a[k4 & 1][i];
+        const float av = kk == 0 ? ai.x : kk == 1 ? ai.y : kk == 2 ? ai.z : ai.w;
+#pragma unroll
+        for (int g = 0; g < TG; ++g) {
+          const float4& bg = b[k & 1][g];
+          acc[i][g].x = fmaf(av, bg.x, acc[i][g].x);
+          acc[i][g].y = fmaf(av, bg.y, acc[i][g].y);
+          acc[i][g].z = fmaf(av, bg.z, acc[i][g].z);
+          acc[i][g].w = fmaf(av, bg.w, acc[i][g].w);
+        }
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+  // epilogue: float4 stores, a warp's 8 threads of a row on 128 contiguous
+  // bytes
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int g = 0; g < TG; ++g)
+      *reinterpret_cast<float4*>(C + (size_t)(row0 + ty + 16 * i) * N + col0 + 64 * g +
+                                 4 * tx) = acc[i][g];
 }
 
 template <int BM, int BN, int BK>
-cudaError_t launch_f32(const void* a, const void* b, void* c, int M, int N, int K,
-                       cudaStream_t s) {
+cudaError_t launch(const void* a, const void* b, void* c, int M, int N, int K,
+                   cudaStream_t s) {
+  using T = Tile<BM, BN, BK>;
   const dim3 grid(N / BN, M / BM);
-  const size_t smem = F32Tile<BM, BN, BK>::smem;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mm_f32<BM, BN, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  mm_f32<BM, BN, BK><<<grid, THREADS, smem, s>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      mm_f32<BM, BN, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::smem);
+  if (err != cudaSuccess) return err;
+  mm_f32<BM, BN, BK><<<grid, THREADS, T::smem, s>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<float*>(c), M, N, K);
   return cudaGetLastError();
 }
+
+}  // namespace ffma
 
 }  // namespace
 
@@ -306,7 +412,7 @@ extern "C" int mm_matmul(const void* a, const void* b, void* c, int M, int N,
   }
   if (dtype != DT_F32) return (int)cudaErrorInvalidValue;
 #define MM_CASE(BM, BN, BK) \
-  if (bm == BM && bn == BN && bk == BK) return (int)launch_f32<BM, BN, BK>(a, b, c, M, N, K, s);
+  if (bm == BM && bn == BN && bk == BK) return (int)ffma::launch<BM, BN, BK>(a, b, c, M, N, K, s);
   MM_CASE(64, 64, 32)
   MM_CASE(64, 64, 64)
   MM_CASE(64, 128, 32)

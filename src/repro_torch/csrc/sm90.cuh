@@ -1,5 +1,5 @@
 // sm90.cuh — Hopper (sm_90a) building blocks in inline PTX: mbarriers,
-// TMA tile loads, wgmma shared-memory descriptors and instructions (A from
+// 16-byte cp.async copies, TMA tile loads, wgmma shared-memory descriptors and instructions (A from
 // shared memory or from registers), named barriers, and register
 // reallocation between warpgroups.  Device helpers only wrap one
 // instruction each; the host helper builds a TMA tensor map through the
@@ -77,6 +77,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t polls = 0;
   while (!mbar_try_wait(bar, parity))
     if (++polls == (1u << 26)) __trap();
+}
+
+// ---- cp.async ------------------------------------------------------------
+
+// 16 bytes from global to shared memory, cached in L2 only (.cg); lands
+// by the cp_async_wait that covers this thread's enclosing commit group
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // ---- TMA -----------------------------------------------------------------

@@ -12,12 +12,19 @@
 // point, instruction issue would hold the kernel at 4x its bytes bound.
 //
 // Design.
-//   * WG and TS are clamped to >= 1 on load, as the plain version
-//     (sweep_ref, model_time_torch) clamps them.  With size >= 0 (the
-//     wrapper checks it) every dividend then lies in [0, 2^31), where
-//     floor and truncation agree: the arithmetic is unsigned, with no
-//     floor fix-ups, and a remainder is a - q*b from its quotient.
-//     Sums and products wrap mod 2^32 as the int32 plain version does.
+//   * Invalid points follow the exact engine's rule, as the plain
+//     version (sweep_ref, model_time_torch) does: TS <= 0 or size / TS
+//     == 0 (no work item) gives the sentinel; WG is clamped to 1 only as
+//     the divisor of items.  The fast path takes every point with WG >= 1
+//     and TS >= 1: with size >= 0 (the wrapper checks it) every dividend
+//     lies in [0, 2^31), where floor and truncation agree, so its
+//     arithmetic (model_time_fast) is unsigned, with no floor fix-ups,
+//     and a remainder is a - q*b from its quotient.  A point with WG <= 0
+//     (and work items) branches on load to model_time_wg0, which follows
+//     the plain version's signed floor arithmetic with min(WG, items) =
+//     WG; no lattice the tuner sweeps holds one, so the branch is never
+//     taken there.  Sums and products wrap mod 2^32 as the int32 plain version
+//     does, on both paths.
 //   * Divisors that are the same for every point of a launch (NP, U and
 //     warp) are divided by multiply-high with magic numbers
 //     (Granlund-Montgomery for 31-bit dividends), which the wrapper
@@ -95,10 +102,36 @@ __device__ __forceinline__ uint32_t group_time(const Wave& p, uint32_t cnt,
   return waves * g * TS + (resident - 1) + g + p.L;
 }
 
+// floor(a / b) and ceil(a / b) for b >= 1 as the plain version's int32
+// tensors give them, negation wrapping (-INT_MIN == INT_MIN)
+__device__ __forceinline__ int sneg(int a) { return (int)(0u - (uint32_t)a); }
+__device__ __forceinline__ int sfdiv(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+__device__ __forceinline__ int scdiv(int a, int b) { return sneg(sfdiv(sneg(a), b)); }
+
+// A point with WG <= 0 and items >= 1 work items: items / max(WG, 1) =
+// items groups of rem 0, each of cnt = min(WG, items) = WG elements, so
+// resident = min(WG, NP) = WG; the group time's waves and gmt_eff in the
+// plain version's signed floor arithmetic.
+__device__ __forceinline__ int model_time_wg0(const Wave& p, int wg, uint32_t TS,
+                                              uint32_t items) {
+  const int waves = scdiv(wg, (int)p.NP);
+  uint32_t g = p.GMT;
+  if (p.warp) {
+    const int n_warps = max(1, scdiv(wg, (int)p.warp));
+    g = (uint32_t)max(1, scdiv((int)p.GMT, n_warps));
+  }
+  const uint32_t t_full = (uint32_t)waves * g * TS + ((uint32_t)wg - 1u) + g + p.L;
+  const uint32_t count = udiv(items - 1, p.u) + 1;    // ceil(items / U)
+  return (int)(count * t_full + items);               // host-side final reduce
+}
+
+// The fast path: WG >= 1 and TS >= 1.
 template <int MODE>
-__device__ __forceinline__ int model_time(const Wave& p, int wg, int ts,
-                                          const uint32_t* tab) {
-  const uint32_t WG = (uint32_t)max(wg, 1), TS = (uint32_t)max(ts, 1);
+__device__ __forceinline__ int model_time_fast(const Wave& p, uint32_t WG, uint32_t TS,
+                                               const uint32_t* tab) {
   const uint32_t items = p.size / TS;
   if (items == 0) return SENTINEL;
   const uint32_t full = items / WG;
@@ -116,6 +149,17 @@ __device__ __forceinline__ int model_time(const Wave& p, int wg, int ts,
   const uint32_t device_t =
       rem > 0 ? (uint32_t)max((int)t0, (int)tr) : count * t_full;
   return (int)(device_t + g_total);              // host-side final reduce
+}
+
+template <int MODE>
+__device__ __forceinline__ int model_time(const Wave& p, int wg, int ts,
+                                          const uint32_t* tab) {
+  if (ts < 1) return SENTINEL;
+  if (wg < 1) {
+    const uint32_t items = p.size / (uint32_t)ts;
+    return items == 0 ? SENTINEL : model_time_wg0(p, wg, (uint32_t)ts, items);
+  }
+  return model_time_fast<MODE>(p, (uint32_t)wg, (uint32_t)ts, tab);
 }
 
 template <int MODE>
@@ -156,14 +200,16 @@ __global__ void sweep_eval_kernel(const int* __restrict__ wg,
 }
 
 // One configuration's fast path, for counting its instructions: the
-// table comes from a pointer, so its read is one LDG where the sweep has
-// one LDS.
+// TS test and model_time_fast, without the WG <= 0 branch, which no
+// lattice the tuner sweeps takes.  The table comes from a pointer, so its
+// read is one LDG where the sweep has one LDS.
 template <int MODE>
 __global__ void sweep_point_probe(const int* __restrict__ wg,
                                   const int* __restrict__ ts,
                                   int* __restrict__ out, Wave p,
                                   const uint32_t* __restrict__ tab) {
-  out[0] = model_time<MODE>(p, wg[0], ts[0], tab);
+  const int t = ts[0];
+  out[0] = t < 1 ? SENTINEL : model_time_fast<MODE>(p, (uint32_t)wg[0], (uint32_t)t, tab);
 }
 
 template <int MODE>

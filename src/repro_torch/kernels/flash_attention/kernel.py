@@ -17,15 +17,39 @@ from .ref import attention_ref
 
 # the (block_q, block_k) tiles compiled as template instantiations, per
 # element size: bf16 has block_q = 128 (two consumer warpgroups of 64 rows)
-# and block_k in {64, 128} (wgmma widths); f32 is the FMA kernel's grid.
+# and block_k in {64, 128} (wgmma widths); f32 (the FMA kernel, 16 threads
+# per 8 query rows) has block_q in {64, 128} and block_k in {32, 64}, each
+# of which fits a block with its two-stage K/V ring at both head dims.
 # Both compile the head dims HEAD_DIMS.
 TILES = {
     2: {"block_q": (128,), "block_k": (64, 128)},
-    4: {"block_q": (64, 128), "block_k": (32, 64, 128)},
+    4: {"block_q": (64, 128), "block_k": (32, 64)},
 }
 HEAD_DIMS = (64, 128)
-# the most dynamic shared memory a block may have on Hopper (227 KB)
+# the most dynamic shared memory a block may have on Hopper (227 KB), and
+# the most each of two blocks sharing an SM may have
 SMEM_LIMIT = 232448
+SMEM_PAIR = 115712
+# depth of the f32 kernel's K/V ring (csrc/flash_attention.cu, ffma)
+F32_STAGES = 2
+
+
+def f32_smem_bytes(block_q: int, block_k: int, D: int) -> int:
+    """Shared memory of one f32 block: the (block_q, D) Q tile, the ring's
+    K and V tiles, and the (block_q, block_k) P tile, all f32."""
+
+    return (block_q * D + F32_STAGES * 2 * block_k * D + block_q * block_k) * 4
+
+
+def f32_blocks_per_sm(block_q: int, block_k: int, D: int) -> int:
+    """Blocks of the f32 kernel that share an SM: ptxas gives a thread
+    160-224 registers, so a block of 256 threads (block_q = 128) has an
+    SM to itself, and two of 128 (block_q = 64) share one where their
+    shared memory allows."""
+
+    if block_q == 128:
+        return 1
+    return 2 if f32_smem_bytes(block_q, block_k, D) <= SMEM_PAIR else 1
 _DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2}
 
 
@@ -92,4 +116,5 @@ def flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_kernel.launches = 0
 
-__all__ = ["flash_kernel", "TILES", "HEAD_DIMS", "SMEM_LIMIT", "bf16_stages"]
+__all__ = ["flash_kernel", "TILES", "HEAD_DIMS", "SMEM_LIMIT", "SMEM_PAIR",
+           "F32_STAGES", "bf16_stages", "f32_smem_bytes", "f32_blocks_per_sm"]

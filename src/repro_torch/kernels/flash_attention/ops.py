@@ -8,16 +8,15 @@ and window is tuned on first sight and served from the port's tuning
 cache afterwards.  The lattice is the set of tiles compiled into the
 kernel for the dtype that divide S, each within the 227 KB of shared
 memory a block may use and 1024 threads.  The cost model prices the
-H100: for bf16, blocks of one q-block each, dealt out in launch order to
-the 132 SMs (one block per SM), each block its relevant k-blocks and a
-fixed cost at rates fitted on the card; for f32, the flops of the
-visited blocks at 67 TFLOP/s (FMA) against K/V re-streamed once per
-q-block at 3.35 TB/s, plus a per-tile cost of each block's load-and-sync
-round.
+H100: blocks of one q-block each, dealt out in launch order to the SMs
+(one bf16 block per SM; one or two f32 blocks, as their shared memory
+lets), each block its relevant k-blocks and a fixed cost at rates fitted
+on the card per dtype and tile.
 """
 
 from __future__ import annotations
 
+import functools
 import heapq
 from dataclasses import dataclass
 from typing import Any, ClassVar, Mapping
@@ -26,16 +25,27 @@ import torch
 
 from ...core.search_space import Param, SearchSpace
 from ...tune import autotune
-from ..common import (F32_FLOPS, HBM_BYTES_PER_S, LAUNCH_US, SMS,
-                      as_device_tensor, generator, resolve_device, time_fn,
-                      tunable_device)
-from .kernel import SMEM_LIMIT, TILES, bf16_stages, flash_kernel
+from ..common import (LAUNCH_US, SMS, as_device_tensor, generator,
+                      resolve_device, time_fn, tunable_device)
+from .kernel import (SMEM_LIMIT, TILES, bf16_stages, f32_blocks_per_sm,
+                     f32_smem_bytes, flash_kernel)
 from .ref import attention_ref
 
 _MAX_THREADS = 1024
-# f32 (FMA kernel), a modeling assumption: one block's staged K/V tile +
-# two barriers
-_STEP_US = 0.3
+# f32 (FMA kernel), per head dim and (block_q, block_k): the SM time of
+# one block's k-block and of its fixed cost (blocks that share an SM split
+# its rate), fitted on an NVIDIA H100 80GB HBM3 at a 700 W power limit to
+# each tile's median time at (1, 20, 1024, 64) and (1, 20, 4096, 128),
+# causal and not (tools/flash_report.py, "f32_fit"; a negative fixed cost
+# fitted as 0)
+_F32_STEP_US = {
+    64: {(64, 32): 2.061, (64, 64): 5.189, (128, 32): 7.731,
+         (128, 64): 13.91},
+    128: {(64, 32): 4.080, (64, 64): 8.300, (128, 32): 7.994,
+          (128, 64): 13.99}}
+_F32_BLOCK_US = {
+    64: {(64, 32): 28.76, (64, 64): 9.347, (128, 32): 0.0, (128, 64): 0.0},
+    128: {(64, 32): 1.301, (64, 64): 0.0, (128, 32): 9.540, (128, 64): 15.20}}
 # bf16 (wgmma kernel), per block_k at D = 128 (other head dims in
 # proportion to D): the time one block takes for a k-block, and its fixed
 # cost (Q's load, the ring's fill, the epilogue), fitted on an NVIDIA H100
@@ -57,14 +67,14 @@ def smem_bytes(cfg: Mapping[str, Any], D: int, dtype_bytes: int) -> int:
         stages = bf16_stages(bk, D)
         return 1024 + bq * D * 2 + stages * 2 * bk * D * 2 + \
             (1 + 2 * stages) * 8
-    return 2 * bk * D * 4
+    return f32_smem_bytes(bq, bk, D)
 
 
 def threads(cfg: Mapping[str, Any], dtype_bytes: int) -> int:
     """Threads of one block: two consumer warpgroups and a producer warp
-    (bf16), four threads per row (f32)."""
+    (bf16), 16 per 8 query rows (f32)."""
 
-    return 288 if dtype_bytes == 2 else cfg["block_q"] * 4
+    return 288 if dtype_bytes == 2 else cfg["block_q"] * 2
 
 
 def tuning_space(S: int, D: int, dtype_bytes: int = 2) -> SearchSpace:
@@ -122,20 +132,44 @@ def visible_pairs(S: int, causal: bool = True,
     return total
 
 
-def wgmma_time_us(S: int, D: int, BH: int, bk: int, causal: bool = True,
-                  window: int | None = None, bq: int = 128) -> float:
-    """The bf16 kernel's modeled time without the launch: its blocks, the
-    latest q-block of every head first as the grid launches them, each
-    to the SM that frees first (one block per SM)."""
+def schedule_us(S: int, BH: int, bq: int, bk: int, step: float, fixed: float,
+                slots: int, causal: bool = True,
+                window: int | None = None) -> float:
+    """Modeled time of a grid of one block per (head, q-block), the
+    latest q-block of every head first as the kernels launch them, each
+    block to the slot that frees first: ``step`` a visited k-block plus
+    ``fixed`` a block."""
 
-    step = _WG_STEP_US[bk] * D / 128
-    fixed = _WG_BLOCK_US[bk] * D / 128
-    sms = [0.0] * SMS
+    busy = [0.0] * slots
     for q_lo in range(S - bq, -1, -bq):
         n = k_blocks(q_lo, q_lo + bq - 1, S, bk, causal, window)[1]
         for _ in range(BH):
-            heapq.heapreplace(sms, sms[0] + n * step + fixed)
-    return max(sms)
+            heapq.heapreplace(busy, busy[0] + n * step + fixed)
+    return max(busy)
+
+
+def wgmma_time_us(S: int, D: int, BH: int, bk: int, causal: bool = True,
+                  window: int | None = None, bq: int = 128) -> float:
+    """The bf16 kernel's modeled time without the launch (one block per
+    SM)."""
+
+    return schedule_us(S, BH, bq, bk, _WG_STEP_US[bk] * D / 128,
+                       _WG_BLOCK_US[bk] * D / 128, SMS, causal, window)
+
+
+def ffma_time_us(S: int, D: int, BH: int, bq: int, bk: int,
+                 causal: bool = True, window: int | None = None) -> float:
+    """The f32 kernel's modeled time without the launch: b blocks to an
+    SM (``f32_blocks_per_sm``), each at 1/b of the SM's rate fitted at
+    its head dim."""
+
+    b = f32_blocks_per_sm(bq, bk, D)
+    # a head dim that was not fitted (on the CPU) scales the nearer one's
+    fit = 64 if D <= 64 else 128
+    scale = b * D / fit
+    return schedule_us(S, BH, bq, bk, scale * _F32_STEP_US[fit][(bq, bk)],
+                       scale * _F32_BLOCK_US[fit][(bq, bk)], SMS * b, causal,
+                       window)
 
 
 def cost_model(cfg: Mapping[str, Any], *, S: int, D: int, BH: int,
@@ -146,12 +180,7 @@ def cost_model(cfg: Mapping[str, Any], *, S: int, D: int, BH: int,
     bq, bk = cfg["block_q"], cfg["block_k"]
     if dtype_bytes == 2:
         return wgmma_time_us(S, D, BH, bk, causal, window, bq) + LAUNCH_US
-    visited = visited_blocks(S, bq, bk, causal, window)
-    compute_us = 4 * BH * visited * bq * bk * D / F32_FLOPS * 1e6
-    # K and V re-streamed once per visited tile, q read and o written once
-    streamed = (BH * visited * bk * D * 2 + BH * S * D * 2) * dtype_bytes
-    mem_us = streamed / HBM_BYTES_PER_S * 1e6
-    return max(compute_us, mem_us) + BH * visited * _STEP_US / SMS + LAUNCH_US
+    return ffma_time_us(S, D, BH, bq, bk, causal, window) + LAUNCH_US
 
 
 @dataclass(frozen=True)
@@ -178,21 +207,28 @@ class FlashAttentionTunable:
                           causal=self.causal, window=self.window,
                           dtype_bytes=self.dtype_bytes)
 
-    def measure(self, cfg: Mapping[str, Any], *, warmup: int = 1,
-                iters: int = 3) -> float:
-        """Microseconds of the kernel at this tile on random q, k, v made
-        from a seeded generator on the device."""
+    @functools.cached_property
+    def _inputs(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Random q, k, v from a seeded generator on the device, made at
+        the first ``measure()`` and kept for every later one."""
 
         dev = resolve_device(self.device)
         dtype = torch.bfloat16 if self.dtype_bytes == 2 else torch.float32
         g = generator(dev)
-        q, k, v = (torch.randn(1, self.BH, self.S, self.D, generator=g,
-                               device=dev).to(dtype) for _ in range(3))
+        return tuple(torch.randn(1, self.BH, self.S, self.D, generator=g,
+                                 device=dev).to(dtype) for _ in range(3))
+
+    def measure(self, cfg: Mapping[str, Any], *, warmup: int = 1,
+                iters: int = 3) -> float:
+        """Microseconds of the kernel at this tile on this Tunable's one
+        seeded q, k, v."""
+
+        q, k, v = self._inputs
         run = lambda: flash_attention(q, k, v, causal=self.causal,
                                       window=self.window,
                                       block_q=cfg["block_q"],
                                       block_k=cfg["block_k"])
-        return time_fn(run, device=dev, warmup=warmup, iters=iters)
+        return time_fn(run, device=q.device, warmup=warmup, iters=iters)
 
     def fingerprint(self) -> dict[str, Any]:
         fp = {"tunable": self.name, "S": self.S, "D": self.D, "BH": self.BH,
@@ -235,4 +271,4 @@ def flash_attention(q, k, v, *, causal: bool = True,
 __all__ = ["flash_attention", "FlashAttentionTunable", "tuning_space",
            "cost_model", "attention_ref", "flash_kernel", "smem_bytes",
            "threads", "k_blocks", "visited_blocks", "visible_pairs",
-           "wgmma_time_us"]
+           "wgmma_time_us", "ffma_time_us", "schedule_us"]

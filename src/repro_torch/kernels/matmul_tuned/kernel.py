@@ -24,12 +24,32 @@ TILES = {
 # depth of the bf16 kernel's ring of shared-memory stages for each bn: the
 # deepest that fits 227 KB (csrc/matmul_tuned.cu, wg::Tile)
 BF16_STAGES = {128: 7, 256: 4}
+# the most shared memory each of two blocks on one SM may have (the SM's
+# 228 KB less 1 KB reserved a block, halved): the f32 kernel's ring is as
+# deep as this allows, so two blocks share an SM where they can
+F32_SMEM_PAIR = 115712
+
+
+def f32_stage_bytes(bm: int, bn: int, bk: int) -> int:
+    """One stage of the f32 kernel's ring: A (bm x bk, rows padded by 4
+    floats) and B (bk x bn), f32 (csrc/matmul_tuned.cu, ffma::Tile)."""
+
+    return (bm * (bk + 4) + bk * bn) * 4
+
+
+def f32_stages(bm: int, bn: int, bk: int) -> int:
+    """Depth of the f32 kernel's cp.async ring: the deepest that lets two
+    blocks share an SM, and never below 2."""
+
+    return max(2, F32_SMEM_PAIR // f32_stage_bytes(bm, bn, bk))
+
+
 _DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2}
 
 
 def _check_layout(name: str, t: torch.Tensor) -> None:
-    """What TMA (and the f32 kernel's plain indexing) needs of an
-    operand: contiguous rows, 16 bytes apart or a multiple of that, from
+    """What TMA (and the f32 kernel's 16-byte cp.async copies) needs of
+    an operand: contiguous rows, 16 bytes apart or a multiple of that, from
     a 16-byte aligned base."""
 
     if not t.is_contiguous():
@@ -82,4 +102,5 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
 
 matmul_kernel.launches = 0
 
-__all__ = ["matmul_kernel", "TILES", "BF16_STAGES"]
+__all__ = ["matmul_kernel", "TILES", "BF16_STAGES", "F32_SMEM_PAIR",
+           "f32_stage_bytes", "f32_stages"]

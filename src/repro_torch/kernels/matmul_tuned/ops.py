@@ -10,12 +10,12 @@ kernel for the operands' dtype that divide the problem, each within the
 the H100: for bf16, waves of output tiles over the 132 SMs, each tile
 its K steps and its epilogue at rates fitted on the card; for f32, the
 larger of the flops at 67 TFLOP/s (FMA) and the operand panels
-re-streamed at 3.35 TB/s, plus a per-K-step cost of each block's
-load-and-sync round.
+re-streamed at 3.35 TB/s, plus a per-K-step cost fitted on the card.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, ClassVar, Mapping
@@ -27,13 +27,16 @@ from ...tune import autotune
 from ..common import (F32_FLOPS, HBM_BYTES_PER_S, LAUNCH_US, SMS,
                       as_device_tensor, generator, resolve_device, time_fn,
                       tunable_device)
-from .kernel import BF16_STAGES, TILES, matmul_kernel
+from .kernel import (BF16_STAGES, TILES, f32_stage_bytes, f32_stages,
+                     matmul_kernel)
 from .ref import matmul_ref
 
 _SMEM_LIMIT = 227 * 1024
-# f32 (FMA kernel), a modeling assumption: one block's staged load + two
-# barriers per K step
-_STEP_US = 0.5
+# f32 (FMA kernel): what one block's K step costs beyond the flops at
+# 67 TFLOP/s (or the streamed bytes), the least-squares fit over every
+# f32 tile at 4096 x 4096 x {1024, 4096} on an NVIDIA H100 80GB HBM3 at a
+# 700 W power limit (tools/matmul_report.py, "f32_fit")
+_STEP_US = 0.5375
 # bf16 (wgmma kernel), per bn: the time of one block's K step and of one
 # tile's epilogue, fitted on an NVIDIA H100 80GB HBM3 at a 700 W power
 # limit to each tile's median time at 8192 x 8192 x {1024, 8192}
@@ -52,7 +55,7 @@ def smem_bytes(cfg: Mapping[str, Any], dtype_bytes: int) -> int:
         # stages of A and B tiles, a full and an empty barrier per stage
         stages = BF16_STAGES[bn]
         return 1024 + stages * (bm * bk + bk * bn) * 2 + 2 * stages * 8
-    return (bk * (bm + 1) + bk * bn) * 4
+    return f32_stages(bm, bn, bk) * f32_stage_bytes(bm, bn, bk)
 
 
 def tuning_space(M: int, N: int, K: int, dtype_bytes: int = 2) -> SearchSpace:
@@ -110,19 +113,27 @@ class MatmulTunable:
         return cost_model(cfg, M=self.M, N=self.N, K=self.K,
                           dtype_bytes=self.dtype_bytes)
 
-    def measure(self, cfg: Mapping[str, Any], *, warmup: int = 1,
-                iters: int = 3) -> float:
-        """Microseconds of the kernel at this tile on random operands
-        made from a seeded generator on the device."""
+    @functools.cached_property
+    def _inputs(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Random operands from a seeded generator on the device, made at
+        the first ``measure()`` and kept for every later one."""
 
         dev = resolve_device(self.device)
         dtype = torch.bfloat16 if self.dtype_bytes == 2 else torch.float32
         g = generator(dev)
         a = torch.randn(self.M, self.K, generator=g, device=dev).to(dtype)
         b = torch.randn(self.K, self.N, generator=g, device=dev).to(dtype)
+        return a, b
+
+    def measure(self, cfg: Mapping[str, Any], *, warmup: int = 1,
+                iters: int = 3) -> float:
+        """Microseconds of the kernel at this tile on this Tunable's one
+        seeded pair of operands."""
+
+        a, b = self._inputs
         run = lambda: matmul_tuned(a, b, bm=cfg["bm"], bn=cfg["bn"],
                                    bk=cfg["bk"])
-        return time_fn(run, device=dev, warmup=warmup, iters=iters)
+        return time_fn(run, device=a.device, warmup=warmup, iters=iters)
 
     def fingerprint(self) -> dict[str, Any]:
         fp = {"tunable": self.name, "M": self.M, "N": self.N, "K": self.K,

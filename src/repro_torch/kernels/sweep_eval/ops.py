@@ -15,6 +15,7 @@ launch, both constants fitted on the card.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, ClassVar, Mapping
 
@@ -73,22 +74,29 @@ class SweepEvalTunable:
     def cost(self, cfg: Mapping[str, Any]) -> float:
         return cost_model(cfg, n=self.n)
 
-    def measure(self, cfg: Mapping[str, Any], *, warmup: int = 1,
-                iters: int = 3) -> float:
-        """Microseconds of the kernel at this launch shape over random
-        (WG, TS) points in [1, 1024] (timing depends on the lattice size
-        and the launch shape, hardly on the wave parameters)."""
+    @functools.cached_property
+    def _inputs(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Random (WG, TS) points in [1, 1024] from a seeded generator on
+        the device, made at the first ``measure()`` and kept for every
+        later one."""
 
         dev = resolve_device(self.device)
-        p = WaveParams(size=max(4, self.n), NP=4, GMT=4, kind="minimum")
         g = generator(dev)
-        wg = torch.randint(1, 1025, (self.n,), generator=g, device=dev,
-                           dtype=torch.int32)
-        ts = torch.randint(1, 1025, (self.n,), generator=g, device=dev,
-                           dtype=torch.int32)
+        return tuple(torch.randint(1, 1025, (self.n,), generator=g,
+                                   device=dev, dtype=torch.int32)
+                     for _ in range(2))
+
+    def measure(self, cfg: Mapping[str, Any], *, warmup: int = 1,
+                iters: int = 3) -> float:
+        """Microseconds of the kernel at this launch shape over this
+        Tunable's one seeded lattice (timing depends on the lattice size
+        and the launch shape, hardly on the wave parameters)."""
+
+        wg, ts = self._inputs
+        p = WaveParams(size=max(4, self.n), NP=4, GMT=4, kind="minimum")
         run = lambda: sweep_eval(wg, ts, p, threads=cfg["threads"],
                                  ept=cfg["ept"])
-        return time_fn(run, device=dev, warmup=warmup, iters=iters)
+        return time_fn(run, device=wg.device, warmup=warmup, iters=iters)
 
     def fingerprint(self) -> dict[str, Any]:
         fp = {"tunable": self.name, "n": self.n}

@@ -18,8 +18,8 @@ def sweep_ref(p: WaveParams, WG: torch.Tensor, TS: torch.Tensor) -> torch.Tensor
 def point_ops(p: WaveParams) -> int:
     """Integer operations the Minimum model needs for one configuration,
     each compare, select, add, multiply, min/max, division and remainder
-    one: 11 to clamp WG and TS and find items, full, rem, g_total and
-    cnt = min(WG, items); 8 a group time (waves, resident, the wave's
+    one: 11 to test TS, clamp WG as a divisor and find items, full,
+    rem, g_total and cnt = min(WG, items); 8 a group time (waves, resident, the wave's
     g·TS, the sum with resident − 1, g and L) and 3 more for the
     remainder group's clamp and select; 18 to place the groups on the
     U units, add the host's g_total and mark a configuration with no

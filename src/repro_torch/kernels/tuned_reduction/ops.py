@@ -16,6 +16,7 @@ block folds the partials, and there is one launch.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, ClassVar, Mapping
 
@@ -101,17 +102,26 @@ class ReductionTunable:
     def cost(self, cfg: Mapping[str, Any]) -> float:
         return cost_model(cfg, n=self.n, dtype_bytes=self.dtype_bytes)
 
-    def measure(self, cfg: Mapping[str, Any], *, warmup: int = 1,
-                iters: int = 3) -> float:
-        """Microseconds of the kernel at this config on random data
-        (f32 for 4-byte, bf16 for 2-byte elements), made from a seeded
-        generator on the device."""
+    @functools.cached_property
+    def _input(self) -> torch.Tensor:
+        """Random data (f32 for 4-byte, bf16 for 2-byte elements) from a
+        seeded generator on the device, made at the first ``measure()``
+        and kept for every later one: a job's time is the kernel's, not
+        the data's."""
 
         dev = resolve_device(self.device)
         dtype = torch.float32 if self.dtype_bytes == 4 else torch.bfloat16
-        x = torch.randn(self.n, generator=generator(dev), device=dev).to(dtype)
+        return torch.randn(self.n, generator=generator(dev),
+                           device=dev).to(dtype)
+
+    def measure(self, cfg: Mapping[str, Any], *, warmup: int = 1,
+                iters: int = 3) -> float:
+        """Microseconds of the kernel at this config on this Tunable's
+        one seeded input."""
+
+        x = self._input
         run = lambda: reduce_1d(x, op=self.op, WG=cfg["WG"], TS=cfg["TS"])
-        return time_fn(run, device=dev, warmup=warmup, iters=iters)
+        return time_fn(run, device=x.device, warmup=warmup, iters=iters)
 
     def fingerprint(self) -> dict[str, Any]:
         fp = {"tunable": self.name, "n": self.n, "op": self.op,

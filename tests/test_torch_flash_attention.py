@@ -22,7 +22,8 @@ from repro.kernels.flash_attention.ops import \
 from repro_torch.interop import from_numpy, to_numpy  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    SMEM_LIMIT, TILES, bf16_stages, flash_kernel)
+    SMEM_LIMIT, SMEM_PAIR, TILES, bf16_stages, f32_blocks_per_sm,
+    flash_kernel)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     FlashAttentionTunable, attention_ref, flash_attention, k_blocks,
     smem_bytes, threads, tuning_space, visible_pairs, visited_blocks)
@@ -216,6 +217,59 @@ def test_cost_model_counts_the_visited_blocks():
     # the causal work at qwen1.5-4b's shape, 4 * BH * S^2/2 * D ~ 86 GFLOP
     assert 4 * 20 * visible_pairs(4096) * 128 == pytest.approx(85.92e9,
                                                                rel=1e-3)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_f32_tiles_fit_a_block_with_their_two_stage_ring(D):
+    """The f32 kernel's block: Q (block_q x D), two stages of K and V
+    (block_k x D each) and P (block_q x block_k), all f32; 16 threads per
+    8 query rows.  Every tile of the lattice fits at both head dims."""
+
+    space = list(tuning_space(4096, D, dtype_bytes=4))
+    assert {(c["block_q"], c["block_k"]) for c in space} == \
+        {(64, 32), (64, 64), (128, 32), (128, 64)}
+    for cfg in space:
+        bq, bk = cfg["block_q"], cfg["block_k"]
+        assert smem_bytes(cfg, D, 4) == 4 * (bq * D + 2 * 2 * bk * D +
+                                             bq * bk)
+        assert smem_bytes(cfg, D, 4) <= SMEM_LIMIT
+        assert threads(cfg, 4) == 16 * bq // 8
+    # the widest tile nearly fills a block at D = 128
+    assert smem_bytes({"block_q": 128, "block_k": 64}, 128, 4) == 229376
+
+
+def test_f32_blocks_share_an_sm_only_where_both_fit():
+    """256-thread blocks (block_q = 128) take 160-224 registers a thread
+    and have an SM to themselves; two 128-thread blocks share one where
+    both their shared memories fit."""
+
+    assert f32_blocks_per_sm(128, 32, 64) == 1
+    assert f32_blocks_per_sm(64, 32, 64) == 2
+    assert f32_blocks_per_sm(64, 64, 64) == 2
+    assert f32_blocks_per_sm(64, 32, 128) == 2
+    assert f32_blocks_per_sm(64, 64, 128) == 1       # 180224 bytes
+    for D in (64, 128):
+        for bk in (32, 64):
+            cfg = {"block_q": 64, "block_k": bk}
+            assert (f32_blocks_per_sm(64, bk, D) == 2) == \
+                (smem_bytes(cfg, D, 4) <= SMEM_PAIR)
+
+
+def test_f32_cost_model_picks_the_widest_tile_at_the_model_shape():
+    """At qwen1.5-4b's (1, 20, 4096, 128) the (128, 64) tile was the
+    fastest on the card under both masks; the fitted model agrees, and
+    prices the causal call at about half the non-causal one."""
+
+    for causal in (True, False):
+        t = FlashAttentionTunable(S=4096, D=128, BH=20, causal=causal,
+                                  dtype_bytes=4)
+        assert tune(t, engine="grid", cache=None).best_config == \
+            {"block_q": 128, "block_k": 64}
+    cfg = {"block_q": 128, "block_k": 64}
+    ratio = FlashAttentionTunable(S=4096, D=128, BH=20, dtype_bytes=4).cost(
+        cfg) / FlashAttentionTunable(S=4096, D=128, BH=20, causal=False,
+                                     dtype_bytes=4).cost(cfg)
+    assert 0.45 < ratio < 0.6
 
 
 def test_registered_in_the_plan():

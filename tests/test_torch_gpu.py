@@ -175,8 +175,8 @@ def test_reductions_on_two_streams_at_once(cuda):
         assert all(torch.equal(g, wants[i]) for g in got[i]), i
 
 
-# points the fast path's arithmetic must get right as the plain version
-# does: WG or TS <= 0 (clamped to 1), the int32 extremes, size 0
+# points the kernel must get right as the plain version does: TS <= 0 (no
+# work item), WG <= 0 (its signed path), the int32 extremes, size 0
 _EDGE_WG_TS = [-2**31, -7, -1, 0, 1, 2, 3, 31, 32, 33, 127, 128, 129, 1000,
                2**20, 2**30, 2**31 - 1]
 
@@ -214,6 +214,9 @@ def _rel_l2(got, want):
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
+# f32 (FMA kernel): every tile at (256, 384, 512) and (384, 640, 1024)
+# (16 or 32 k-tiles, past each ring's depth); K = 32 and K = 64 are a
+# single k-tile of bk = 32 and of bk = 64, fewer than any ring's stages.
 # bf16 (wgmma kernel): at (256, 384, 512) only bn = 128 divides N; K = 64
 # is a single step (K = bk); K = 192 is 3 steps, fewer than either ring's
 # stages (4 for bn = 256, 7 for bn = 128).  Every bf16 case is also held
@@ -224,6 +227,9 @@ MM_REL_L2 = 1e-2
 
 @pytest.mark.parametrize("dtype,tol,shape", [
     (torch.float32, 2e-3, (256, 384, 512)),
+    (torch.float32, 2e-3, (384, 640, 1024)),
+    (torch.float32, 2e-3, (256, 384, 32)),
+    (torch.float32, 2e-3, (256, 384, 64)),
     (torch.bfloat16, 5e-2, (256, 384, 512)),
     (torch.bfloat16, 5e-2, (256, 512, 64)),
     (torch.bfloat16, 5e-2, (384, 512, 192))])
@@ -263,6 +269,27 @@ def test_matmul_kernel_identity_products_are_exact(cuda, bn):
                        b[:128])
     assert torch.equal(matmul_tuned(a, eye[:, :bn].contiguous(), **tile),
                        a[:, :bn])
+
+
+def test_matmul_kernel_f32_identity_products_are_exact(cuda):
+    """I . B == B and A . I == A bit for bit at every f32 tile: every sum
+    is one product term of one times an f32 value plus exact zeros, so a
+    transposed, shifted or mis-staged element of either operand's tile,
+    or a stage of the ring read before its copy landed, shows."""
+
+    K = 512
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    eye = torch.eye(K, device=cuda)
+    a = torch.randn(256, K, generator=g, device=cuda)
+    b = torch.randn(K, 384, generator=g, device=cuda)
+    space = list(tuning_space(256, 384, K, dtype_bytes=4))
+    assert len(space) == 8
+    for cfg in space:
+        assert torch.equal(matmul_tuned(eye[:256].contiguous(), b, **cfg),
+                           b[:256]), cfg
+        assert torch.equal(matmul_tuned(a, eye[:, :384].contiguous(), **cfg),
+                           a[:, :384]), cfg
 
 
 def test_matmul_kernel_large_non_square_bf16(cuda):
@@ -422,6 +449,68 @@ def test_flash_kernel_bf16_one_hot_rows_are_exact(cuda, bk, D):
                           block_q=128, block_k=bk)
     torch.cuda.synchronize()
     assert torch.equal(got, v)
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,bq,bk", [(64, 64, 64), (64, 64, 32),
+                                     (128, 128, 64)])
+def test_flash_kernel_f32_few_k_blocks(cuda, S, bq, bk, causal, D):
+    """S = block_k is a single k-block (the ring's first stage only); two
+    k-blocks fill both stages once."""
+
+    q, k, v = _qkv((2, 3, S, D), torch.float32, cuda, seed=S + bq + bk + D)
+    _flash_close(q, k, v, causal, None, bq, bk)
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("bq,bk", _tiles(torch.float32))
+def test_flash_kernel_f32_q_blocks_with_no_relevant_k_block(cuda, bq, bk,
+                                                            D):
+    """A causal window of 0: no q-block has a relevant k-block, so no
+    block copies anything or waits on a barrier, and every row is exact
+    zeros; the next launch still runs.  Without causality the same window
+    leaves only the last row empty."""
+
+    S = 256
+    assert all(k_blocks(q_lo, q_lo + bq - 1, S, bk, True, 0)[1] == 0
+               for q_lo in range(0, S, bq))
+    q, k, v = _qkv((2, 3, S, D), torch.float32, cuda, seed=bq + bk + D)
+    got = _flash_close(q, k, v, True, 0, bq, bk)
+    assert not got.abs().max().item()
+    got = _flash_close(q, k, v, False, 0, bq, bk)
+    assert not got[:, :, -1].abs().max().item()
+    assert got[:, :, :-1].abs().sum(dim=-1).min().item() > 0
+    _flash_close(q, k, v, True, None, bq, bk)
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("bq,bk", _tiles(torch.float32))
+def test_flash_kernel_f32_one_hot_rows_are_exact(cuda, bq, bk, D):
+    """Causal with a window of 1: each row sees only its own key, so
+    p = 2^0 = 1, l = 1 and the output is V's row bit for bit, whatever q
+    and k are.  A mis-swizzled element of V's or P's tile, a P that lands
+    on the wrong key, or a stale stage of the ring, shows."""
+
+    q, k, v = _qkv((2, 3, 256, D), torch.float32, cuda, seed=3 * bk + bq + D)
+    got = flash_attention(q * 4, k * 4, v, causal=True, window=1,
+                          block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, v)
+
+
+def test_flash_kernel_f32_at_the_model_shape(cuda):
+    """qwen1.5-4b's attention, (1, 20, 4096, 128) causal, in f32 at the
+    modeled tile, held to the f32 tolerance and to rel L2 <= 1e-2."""
+
+    q, k, v = _qkv((1, 20, 4096, 128), torch.float32, cuda, seed=8)
+    before = flash_kernel.launches
+    got = flash_attention(q, k, v, causal=True)
+    assert flash_kernel.launches == before + 1
+    want = attention_ref(q, k, v, causal=True)
+    rtol, atol = FLASH_TOL[torch.float32]
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    assert _rel_l2(got, want) <= FLASH_REL_L2
 
 
 def test_flash_kernel_at_the_model_shape(cuda):

@@ -19,8 +19,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.matmul_tuned.ops import matmul_tuned as jax_matmul_tuned  # noqa: E402
 from repro_torch.interop import from_numpy, to_numpy  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.matmul_tuned.kernel import (BF16_STAGES,  # noqa: E402
-                                                     TILES)
+from repro_torch.kernels.matmul_tuned.kernel import (  # noqa: E402
+    BF16_STAGES, F32_SMEM_PAIR, TILES, f32_stages)
 from repro_torch.kernels.matmul_tuned.ops import (MatmulTunable,  # noqa: E402
                                                   matmul_tuned, smem_bytes,
                                                   tuning_space)
@@ -143,6 +143,38 @@ def test_bf16_smem_mirrors_the_ring():
         # the deepest ring that fits: one more stage would not
         assert smem_bytes(cfg, 2) + stage + 16 > SMEM_LIMIT
     assert smem_bytes({"bm": 128, "bn": 256, "bk": 64}, 2) == 197696
+
+
+def test_f32_smem_mirrors_the_ring():
+    """A stage is A (bm x bk, rows padded by 4 floats) and B (bk x bn) in
+    f32; the ring is the deepest that lets two blocks share an SM, and
+    never shallower than 2."""
+
+    space = list(tuning_space(4096, 4096, 4096, dtype_bytes=4))
+    assert len(space) == 8
+    for cfg in space:
+        bm, bn, bk = cfg["bm"], cfg["bn"], cfg["bk"]
+        stage = (bm * (bk + 4) + bk * bn) * 4
+        stages = f32_stages(bm, bn, bk)
+        assert stage % 16 == 0
+        assert smem_bytes(cfg, 4) == stages * stage <= SMEM_LIMIT
+        assert stages >= 2
+        if stages > 2:
+            assert smem_bytes(cfg, 4) <= F32_SMEM_PAIR
+        assert smem_bytes(cfg, 4) + stage > F32_SMEM_PAIR
+    assert [f32_stages(128, 128, 32), f32_stages(128, 128, 64),
+            f32_stages(64, 64, 32)] == [3, 2, 6]
+
+
+def test_f32_cost_model_pick_at_4096_cubed():
+    """The fitted per-step cost keeps the pick on the 128 x 128 tiles, the
+    fastest on the card at 4096^3 (within 1.3 % of each other), and
+    prices the product above the 2.05 ms of its flops at 67 TFLOP/s."""
+
+    t = MatmulTunable(4096, 4096, 4096, dtype_bytes=4)
+    best = tune(t, engine="grid", cache=None).best_config
+    assert (best["bm"], best["bn"]) == (128, 128)
+    assert t.cost(best) > 2 * 4096 ** 3 / 67e12 * 1e6
 
 
 def _bf16(*shape):

@@ -7,13 +7,18 @@ whole (WG, TS) lattice; and the host's magic numbers, through which the
 CUDA kernel divides by the wave parameters, against Python's ``//``.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core.search_space import Param as JaxParam  # noqa: E402
+from repro.core.search_space import SearchSpace as JaxSearchSpace  # noqa: E402
 from repro.core.search_space import wg_ts_space as jax_wg_ts_space  # noqa: E402
+from repro.core.sweep import sweep_times as jax_sweep_times  # noqa: E402
 from repro.core.wave_model import WaveParams as JaxWaveParams  # noqa: E402
 from repro.core.wave_model import model_time as jax_model_time  # noqa: E402
 from repro.kernels.sweep_eval.ops import sweep_eval as jax_sweep_eval  # noqa: E402
@@ -77,6 +82,40 @@ def test_model_time_torch_matches_jax_model_time(kind, warp):
                           torch.from_numpy(arrs["TS"])).numpy(),
         [model_time(p, int(w), int(t)) for w, t in zip(arrs["WG"],
                                                         arrs["TS"])])
+
+
+@pytest.mark.parametrize("kind", ["minimum", "abstract"])
+@pytest.mark.parametrize("warp", [None, 32])
+@pytest.mark.parametrize("size", [2**20, 1000])
+def test_model_time_torch_follows_the_exact_engine_on_invalid_points(
+        kind, warp, size):
+    """One rule for invalid points: the reference's exact engine
+    ``sweep_times`` gives its 2^62 sentinel where no work item exists
+    (TS <= 0, or size // TS < 1) and clamps WG only as a divisor;
+    ``model_time_torch`` gives the same times and its own sentinel
+    there, and the int32 plain version of the kernel agrees."""
+
+    d = {"size": size, "NP": 8, "GMT": 4, "L": 2, "kind": kind, "NU": 8,
+         "warp": warp}
+    space = JaxSearchSpace(params=[JaxParam("WG", (-3, 0, 1, 64)),
+                                   JaxParam("TS", (-8, 0, 1, 16))])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # size // 0
+        want = jax_sweep_times(JaxWaveParams(**d), space).times
+    arrs = space.to_arrays()
+    p = wave_params_from_dict(d)
+    got = model_time_torch(p, torch.from_numpy(arrs["WG"]),
+                           torch.from_numpy(arrs["TS"])).numpy()
+    no_work = want == 2**62
+    assert no_work.sum() == 8                    # TS in {-8, 0}
+    np.testing.assert_array_equal(got[no_work], torch.iinfo(torch.int64).max)
+    np.testing.assert_array_equal(got[~no_work], want[~no_work])
+    if kind == "minimum":
+        got32 = sweep_eval(torch.from_numpy(arrs["WG"].astype(np.int32)),
+                           torch.from_numpy(arrs["TS"].astype(np.int32)), p,
+                           threads=64, ept=1)
+        np.testing.assert_array_equal(got32.numpy()[no_work], SENTINEL)
+        np.testing.assert_array_equal(got32.numpy()[~no_work], want[~no_work])
 
 
 def test_no_work_item_gives_sentinel():

@@ -11,6 +11,9 @@ from repro.core.platform import PlatformSpec as JaxPlatformSpec  # noqa: E402
 from repro.tune import PlatformTunable as JaxPlatformTunable  # noqa: E402
 from repro.tune import tune as jax_tune  # noqa: E402
 from repro_torch.interop import platform_spec_from_dict  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    FlashAttentionTunable)
+from repro_torch.kernels.matmul_tuned.ops import MatmulTunable  # noqa: E402
 from repro_torch.kernels.sweep_eval.ops import SweepEvalTunable  # noqa: E402
 from repro_torch.kernels.tuned_reduction.ops import (  # noqa: E402
     ReductionTunable, reduce_1d)
@@ -179,3 +182,29 @@ def test_plan_isolates_a_failing_job(tmp_path):
          "engine": "sweep"}]})
     report = plan.run(cache=TuningCache(tmp_path / "c.json"))
     assert [r.status for r in report.results] == ["failed", "tuned"]
+
+
+@pytest.mark.parametrize("make,maker", [
+    (lambda: ReductionTunable(4096, device="cpu"), "randn"),
+    (lambda: SweepEvalTunable(4096, device="cpu"), "randint"),
+    (lambda: MatmulTunable(64, 64, 64, dtype_bytes=4, device="cpu"), "randn"),
+    (lambda: FlashAttentionTunable(S=64, D=64, BH=2, dtype_bytes=4,
+                                   device="cpu"), "randn")])
+def test_measure_makes_its_input_once_per_tunable(monkeypatch, make, maker):
+    """Two ``measure()`` calls on one Tunable draw its random input once:
+    a plan job's ``elapsed_s`` then times the kernel, not the data."""
+
+    calls = []
+    real = getattr(torch, maker)
+    monkeypatch.setattr(torch, maker,
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    t = make()
+    cfg = next(iter(t.space()))
+    t.measure(cfg, warmup=0, iters=1)
+    made = len(calls)
+    assert made > 0
+    t.measure(cfg, warmup=0, iters=1)
+    assert len(calls) == made
+    # another Tunable of the same shape makes its own
+    make().measure(cfg, warmup=0, iters=1)
+    assert len(calls) == 2 * made

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""What the bf16 ``flash_attention`` kernel compiles to and how fast each
-of its tiles runs, on one CUDA card.
+"""What the ``flash_attention`` kernels (bf16 and f32) compile to and how
+fast each of their tiles runs, on one CUDA card.
 
     PYTHONPATH=src python3 tools/flash_report.py [--out report.json]
 
@@ -24,7 +24,17 @@ Prints one JSON line per part and writes them all to ``--out``
    place in the run moves it);
 4. ``fit``    — per block_k, the time of one block's k-block and its fixed
    cost, solved from the two masks' medians with the blocks spread evenly
-   over the SMs (the cost model's ``_WG_STEP_US`` and ``_WG_BLOCK_US``).
+   over the SMs (the cost model's ``_WG_STEP_US`` and ``_WG_BLOCK_US``);
+5. ``f32_ptxas``, ``f32_sass`` — the same for the f32 FMA kernel (FFMA,
+   LDS.128, LDGSTS: cp.async, BAR.SYNC, MUFU.EX2, SHFL.BFLY);
+6. ``f32_tile`` — each f32 tile at (1, 20, 1024, 64) and at
+   (1, 20, 4096, 128), causal and not, beside
+   ``scaled_dot_product_attention`` in rotated turns, with the SM clock
+   ``nvidia-smi`` reads before and after each shape's turns;
+7. ``f32_fit`` — per head dim and f32 tile, the SM time of one block's
+   k-block and its fixed cost, solved as in 4 from that head dim's shape
+   (blocks that share an SM split its rate; the cost model's
+   ``_F32_STEP_US`` and ``_F32_BLOCK_US``).
 
 The card's name and power limit come first.  Exits non-zero without a
 card, or if a tile's rel L2 exceeds 1e-2.
@@ -46,6 +56,13 @@ REL_L2 = 1e-2
 ROUNDS = 7
 MARKERS = ("HGMMA", "UTMALDG", "SYNCS", "BAR.SYNC", "BAR.ARV", "STG.E.128",
            "MUFU.EX2")
+F32_MARKERS = ("FFMA", "LDS.128", "LDGSTS", "BAR.SYNC", "MUFU.EX2",
+               "SHFL.BFLY", "STG.E.128")
+# (shape, causal): the f32 cases of chip_smoke.py, each also without the
+# causal mask (the fit's two equations at each head dim)
+F32_SHAPES = ((1, 20, 1024, 64), (1, 20, 4096, 128))
+F32_CASES = tuple((shape, causal) for shape in F32_SHAPES
+                  for causal in (True, False))
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -63,20 +80,118 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def sass_counts(so: Path) -> dict[str, dict]:
-    """Instruction counts of each bf16 flash kernel in ``cuobjdump -sass``."""
+def sass_counts(so: Path, kernel: str = "fa_bf16",
+                markers: tuple[str, ...] = MARKERS) -> dict[str, dict]:
+    """Instruction counts of each ``kernel`` instantiation in
+    ``cuobjdump -sass``."""
 
     from repro_torch.kernels._build import sass
     out: dict[str, dict] = {}
     for fn, instrs in sass(so).items():
-        if "fa_bf16" not in fn:
+        if kernel not in fn:
             continue
-        out[fn] = {"counts": {mk: sum(mk in i for i in instrs)
-                              for mk in MARKERS},
+        out[fn] = {"instructions": len(instrs),
+                   "counts": {mk: sum(mk in i for i in instrs)
+                              for mk in markers},
                    "sample": {mk: next(i for i in instrs if mk in i)
-                              for mk in MARKERS
+                              for mk in markers
                               if any(mk in i for i in instrs)}}
     return out
+
+
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+
+
+def f32_section(emit, info) -> bool:
+    """Parts 5-7: the f32 FMA kernel; False if a tile misses its
+    tolerance."""
+
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.common import SMS
+    from repro_torch.kernels.flash_attention.kernel import TILES
+    from repro_torch.kernels.flash_attention.ops import (attention_ref,
+                                                         cost_model,
+                                                         flash_attention,
+                                                         visible_pairs,
+                                                         visited_blocks)
+
+    fa = info.ptxas.get("flash_attention.cu", [])
+    emit("f32_ptxas", usage={k: v for k, v in _build.ptxas_usage(fa).items()
+                             if "fa_f32" in k})
+    emit("f32_sass", kernels=sass_counts(info.path, "fa_f32", F32_MARKERS))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tiles = [(bq, bk) for bq in TILES[4]["block_q"]
+             for bk in TILES[4]["block_k"]]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    ok = True
+    times = {}
+    for shape, causal in F32_CASES:
+        B, H, S, D = shape
+        q, k, v = (torch.randn(shape, generator=g, device="cuda")
+                   for _ in range(3))
+        want = attention_ref(q, k, v, causal=causal)
+        err = {}
+        for bq, bk in tiles:
+            diff = (flash_attention(q, k, v, causal=causal, block_q=bq,
+                                    block_k=bk) - want).abs()
+            err[(bq, bk)] = float(diff.max())
+            ok &= bool((diff <= 2e-4 + 2e-5 * want.abs()).all())
+        del want, diff
+        runs = {"library": lambda: sdpa(q, k, v, is_causal=causal)}
+        for bq, bk in tiles:
+            runs[(bq, bk)] = lambda bq=bq, bk=bk: flash_attention(
+                q, k, v, causal=causal, block_q=bq, block_k=bk)
+        names = list(runs)
+        bursts: dict = {n: [] for n in names}
+        before = smi("clocks.sm,power.draw,temperature.gpu")
+        for r in range(ROUNDS):
+            for n in names[r % len(names):] + names[:r % len(names)]:
+                bursts[n].append(time_ms(runs[n], iters=5, warmup=1))
+        after = smi("clocks.sm,power.draw,temperature.gpu")
+        med = {n: sorted(b)[len(b) // 2] for n, b in bursts.items()}
+        flops = 4 * B * H * visible_pairs(S, causal) * D
+        for bq, bk in tiles:
+            cfg = {"block_q": bq, "block_k": bk}
+            times[(shape, causal, bq, bk)] = med[(bq, bk)]
+            emit("f32_tile", shape=list(shape), causal=causal, config=cfg,
+                 ms=med[(bq, bk)], least_ms=min(bursts[(bq, bk)]),
+                 tflops=flops / med[(bq, bk)] / 1e9,
+                 max_abs_err=err[(bq, bk)], library_ms=med["library"],
+                 library_least_ms=min(bursts["library"]),
+                 ratio=med[(bq, bk)] / med["library"],
+                 modeled_ms=cost_model(cfg, S=S, D=D, BH=B * H,
+                                       causal=causal, dtype_bytes=4) / 1e3,
+                 sm_clock_before=before, sm_clock_after=after)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # as part 4, at each head dim's shape, in SM time: blocks that share
+    # an SM split its rate, so t * SMS = step * k-blocks + fixed * blocks
+    # whatever the residency; a negative fixed cost is fitted as 0 (the
+    # least-squares step through the origin)
+    fits = {}
+    for shape in F32_SHAPES:
+        _, BH, S, D = shape
+        for bq, bk in tiles:
+            steps = {c: BH * visited_blocks(S, bq, bk, c)
+                     for c in (True, False)}
+            t = {c: times[(shape, c, bq, bk)] * 1e3 * SMS
+                 for c in (True, False)}
+            step_us = (t[False] - t[True]) / (steps[False] - steps[True])
+            block_us = (t[True] - step_us * steps[True]) / (BH * S // bq)
+            if block_us < 0:
+                block_us = 0.0
+                step_us = sum(t[c] * steps[c] for c in t) / sum(
+                    steps[c] ** 2 for c in t)
+            fits[f"D={D} {bq}x{bk}"] = {"step_us": step_us,
+                                        "block_us": block_us}
+    emit("f32_fit", per_tile=fits)
+    return ok
 
 
 def main() -> int:
@@ -103,10 +218,8 @@ def main() -> int:
         lines.append({"part": part, **fields})
         print(json.dumps(lines[-1]), flush=True)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True).stdout.strip()
-    emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    emit("device", name=torch.cuda.get_device_name(0),
+         nvidia_smi=smi("name,power.limit"))
 
     _build.library()
     info = _build.build_info()
@@ -170,12 +283,15 @@ def main() -> int:
         fits[bk] = {"step_us": step_us,
                     "block_us": (t[True] - step_us * steps[True]) / blocks}
     emit("fit", per_block_k=fits)
+    del q, k, v
+    torch.cuda.empty_cache()
+    ok &= f32_section(emit, info)
 
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text("".join(json.dumps(ln) + "\n" for ln in lines))
     if not ok:
-        print(f"flash_report: a tile exceeded rel L2 {REL_L2}",
-              file=sys.stderr)
+        print(f"flash_report: a tile exceeded rel L2 {REL_L2} (bf16) or "
+              f"the f32 tolerance", file=sys.stderr)
         return 1
     return 0
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""What the bf16 ``matmul_tuned`` kernel compiles to and how fast each of
-its tiles runs, on one CUDA card.
+"""What the ``matmul_tuned`` kernels (bf16 and f32) compile to and how
+fast each of their tiles runs, on one CUDA card.
 
     PYTHONPATH=src python3 tools/matmul_report.py [--out report.json]
 
@@ -22,7 +22,15 @@ Prints one JSON line per part and writes them all to ``--out``
    place in the run moves it);
 4. ``fit``    — per bn, the time of one block's K step and of one tile's
    epilogue solved from the two K's medians (the cost model's
-   ``_WG_STEP_US`` and ``_WG_EPILOGUE_US``).
+   ``_WG_STEP_US`` and ``_WG_EPILOGUE_US``);
+5. ``f32_ptxas``, ``f32_sass`` — the same for the f32 FMA kernel
+   (FFMA, LDS.128, LDGSTS: cp.async, BAR.SYNC);
+6. ``f32_tile`` — each f32 tile at 4096 x 4096 x K for K in 1024 and
+   4096 beside ``torch.matmul`` (TF32 off), in rotated turns, with the SM
+   clock ``nvidia-smi`` reads before and after each K's turns;
+7. ``f32_fit`` — the f32 cost model's per-K-step cost (``_STEP_US``):
+   the least-squares fit of what each tile's median takes beyond the
+   flops at 67 TFLOP/s (or the streamed bytes), over its K steps.
 
 The card's name and power limit come first.  Exits non-zero without a
 card, or if a tile's rel L2 exceeds 1e-2.
@@ -45,6 +53,9 @@ MN = 8192
 REL_L2 = 1e-2
 ROUNDS = 5
 MARKERS = ("HGMMA", "UTMALDG", "SYNCS", "USETMAXREG", "STG.E.128", "BAR.SYNC")
+F32_MARKERS = ("FFMA", "LDS.128", "LDGSTS", "BAR.SYNC", "STG.E.128")
+F32_MN = 4096
+F32_KS = (1024, 4096)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -62,20 +73,98 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def sass_counts(so: Path) -> dict[str, dict]:
-    """Instruction counts of each bf16 kernel in ``cuobjdump -sass``."""
+def sass_counts(so: Path, kernel: str = "mm_bf16",
+                markers: tuple[str, ...] = MARKERS) -> dict[str, dict]:
+    """Instruction counts of each ``kernel`` instantiation in
+    ``cuobjdump -sass``."""
 
     from repro_torch.kernels._build import sass
     out: dict[str, dict] = {}
     for fn, instrs in sass(so).items():
-        if "mm_bf16" not in fn:
+        if kernel not in fn:
             continue
-        out[fn] = {"counts": {mk: sum(mk in i for i in instrs)
-                              for mk in MARKERS},
+        out[fn] = {"instructions": len(instrs),
+                   "counts": {mk: sum(mk in i for i in instrs)
+                              for mk in markers},
                    "sample": {mk: next(i for i in instrs if mk in i)
-                              for mk in MARKERS
+                              for mk in markers
                               if any(mk in i for i in instrs)}}
     return out
+
+
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+
+
+def f32_section(emit, info) -> bool:
+    """Parts 5-7: the f32 FMA kernel; False if a tile misses its
+    tolerance."""
+
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.common import (F32_FLOPS, HBM_BYTES_PER_S,
+                                            LAUNCH_US, SMS)
+    from repro_torch.kernels.matmul_tuned.ops import (cost_model, matmul_ref,
+                                                      matmul_tuned,
+                                                      tuning_space)
+
+    mm = info.ptxas.get("matmul_tuned.cu", [])
+    emit("f32_ptxas", usage={k: v for k, v in _build.ptxas_usage(mm).items()
+                             if "mm_f32" in k})
+    emit("f32_sass", kernels=sass_counts(info.path, "mm_f32", F32_MARKERS))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    ok = True
+    points = []
+    for K in F32_KS:
+        M = N = F32_MN
+        a = torch.randn(M, K, generator=g, device="cuda")
+        b = torch.randn(K, N, generator=g, device="cuda")
+        want = matmul_ref(a, b)
+        cfgs = list(tuning_space(M, N, K, dtype_bytes=4))
+        err = {}
+        for cfg in cfgs:
+            diff = (matmul_tuned(a, b, **cfg) - want).abs()
+            key = (cfg["bm"], cfg["bn"], cfg["bk"])
+            err[key] = float(diff.max())
+            ok &= bool((diff <= 2e-3 * K ** 0.5 + 2e-3 * want.abs()).all())
+        runs = {"library": lambda: torch.matmul(a, b)}
+        for cfg in cfgs:
+            runs[(cfg["bm"], cfg["bn"], cfg["bk"])] = \
+                lambda cfg=cfg: matmul_tuned(a, b, **cfg)
+        names = list(runs)
+        bursts: dict = {n: [] for n in names}
+        before = smi("clocks.sm,power.draw,temperature.gpu")
+        for r in range(ROUNDS):
+            for n in names[r % len(names):] + names[:r % len(names)]:
+                bursts[n].append(time_ms(runs[n], iters=5, warmup=1))
+        after = smi("clocks.sm,power.draw,temperature.gpu")
+        med = {n: sorted(v)[len(v) // 2] for n, v in bursts.items()}
+        compute_us = 2 * M * N * K / F32_FLOPS * 1e6
+        for cfg in cfgs:
+            key = (cfg["bm"], cfg["bn"], cfg["bk"])
+            bm, bn, bk = key
+            streamed = (M * K * (N // bn) + K * N * (M // bm) + M * N) * 4
+            base = max(compute_us, streamed / HBM_BYTES_PER_S * 1e6)
+            steps = (M // bm) * (N // bn) * (K // bk)
+            points.append((med[key] * 1e3 - base - LAUNCH_US, steps / SMS))
+            emit("f32_tile", shape=[M, N, K], config=cfg, ms=med[key],
+                 least_ms=min(bursts[key]),
+                 tflops=2 * M * N * K / med[key] / 1e9,
+                 max_abs_err=err[key], library_ms=med["library"],
+                 library_least_ms=min(bursts["library"]),
+                 ratio=med[key] / med["library"],
+                 modeled_ms=cost_model(cfg, M=M, N=N, K=K,
+                                       dtype_bytes=4) / 1e3,
+                 sm_clock_before=before, sm_clock_after=after)
+        del a, b, want
+        torch.cuda.empty_cache()
+    # t - max(flops, bytes) - launch = step * steps / SMS, least squares
+    step = sum(r * s for r, s in points) / sum(s * s for _, s in points)
+    emit("f32_fit", step_us=step, points=len(points))
+    return ok
 
 
 def main() -> int:
@@ -100,10 +189,8 @@ def main() -> int:
         lines.append({"part": part, **fields})
         print(json.dumps(lines[-1]), flush=True)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True).stdout.strip()
-    emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    emit("device", name=torch.cuda.get_device_name(0),
+         nvidia_smi=smi("name,power.limit"))
 
     _build.library()
     info = _build.build_info()
@@ -157,12 +244,13 @@ def main() -> int:
         fits[bn] = {"waves": waves, "step_us": step_us,
                     "epilogue_us": epilogue_us}
     emit("fit", per_bn=fits)
+    ok &= f32_section(emit, info)
 
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text("".join(json.dumps(ln) + "\n" for ln in lines))
     if not ok:
-        print(f"matmul_report: a tile exceeded rel L2 {REL_L2}",
-              file=sys.stderr)
+        print(f"matmul_report: a tile exceeded rel L2 {REL_L2} (bf16) or "
+              f"the f32 tolerance", file=sys.stderr)
         return 1
     return 0
 
