@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the port's two main paths on one CUDA card, end to end: the
-tuning loop and the dense model path (qwen1.5-4b at full width).
+"""Drive the port's main paths on one CUDA card, end to end: the tuning
+loop, the dense model path and the paged serving path (qwen1.5-4b at
+full width).
 
     python3 chip_smoke.py
 
@@ -31,7 +32,17 @@ Each phase prints one JSON line:
    (a'') the full bf16 ``forward`` timed, 40 flash launches each; (b) a
    ``Server`` draining 4 requests of 512 + 16 tokens; then each kernel's
    launches during (a'') and (b); (c) the cut model's ``Server`` against
-   an offline greedy loop through its flash ``forward``.
+   an offline greedy loop through its flash ``forward``;
+7. ``paged``  — the paged ``Server`` at the same full width, under the same
+   tuning cache: a ``torch.profiler`` trace of one decode tick, contiguous
+   and paged (host time, device busy time and idle share, launches, the
+   three largest device ops); (a) 8 requests of 512 + 16 tokens in two
+   waves through 112 pages of 16; (b) the same with ``share_prefix``
+   (all prompts share 256 tokens); n-gram speculation on (a)'s requests;
+   (d) self-draft speculation on the 4-layer f32 cut, paged, each tick's
+   page tables checked, against its never-speculated drain; then each
+   kernel's launches during that path; and (c) paged with a shuffled free
+   list, and shared, against the contiguous drain on the f32 cut.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -82,7 +93,8 @@ FLASH_CASES = (("bfloat16", 1, 20, 4096, 128, True, None),
                ("bfloat16", 1, 20, 4096, 128, True, 1024),
                ("bfloat16", 1, 20, 1024, 128, False, None),
                ("float32", 1, 20, 1024, 64, True, None),
-               ("float32", 1, 20, 4096, 128, True, None))
+               ("float32", 1, 20, 4096, 128, True, None),
+               ("float32", 1, 20, 640, 128, True, None))   # phase 7 (d)
 # the model path: qwen1.5-4b, a forward at S = 4096, and a Server of 4
 # slots x 1024 context draining 4 requests of 512 + 16 tokens
 MODEL = "qwen1.5-4b"
@@ -103,6 +115,13 @@ LAYER_ATTN_TOL = 1e-2
 DEPTH_CUT = 4
 FWD_REL_TOL = 1e-1
 GAP_MULT = 10       # argmax compared only where the top-2 gap > 10 d
+# phase 7, the paged path: 112 pages of 16 tokens (1,792 tokens; 32 pages
+# a 512-token prompt, so three prompts at a time), 8 requests of 512 + 16
+# in two waves, all sharing their first 256 tokens (16 pages)
+PAGED = dict(SERVE, paged=True, page_size=16, kv_pages=112)
+PAGED_REQUESTS = 8
+SHARED_PREFIX = 256
+SPEC_DEPTH = 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -162,9 +181,10 @@ def model_path(dev, gen, counters, flash_ms: float) -> dict:
     """Phase 6: qwen1.5-4b at full width on the card, under a temporary
     tuning cache.  ``flash_ms`` is phase 3d's kernel time at the model
     shape (the same modeled tile ``@autotune`` picks here), for the flash
-    kernel's share of a forward.  Returns the launches of each kernel
-    during the main path, (a'') and (b); the comparisons' launches,
-    before and after it, are not counted."""
+    kernel's share of a forward.  Then phase 7 (:func:`paged_path`) on the
+    same weights and cache.  Returns the launches of each kernel during
+    phase 6's main path, (a'') and (b), and during phase 7's; the
+    comparisons' launches, before and after them, are not counted."""
 
     import numpy as np
     import torch
@@ -194,10 +214,6 @@ def model_path(dev, gen, counters, flash_ms: float) -> dict:
 
     def rel(a, b):
         return float((a.float() - b.float()).norm() / b.float().norm())
-
-    def top2(logits):
-        top = torch.topk(logits.float(), 2, dim=-1)
-        return top.indices[..., 0], top.values[..., 0] - top.values[..., 1]
 
     def compare_last_logits(a_api, b_api, p, toks):
         got = a_api.forward(p, {"tokens": toks})[0, -1].float()
@@ -331,12 +347,7 @@ def model_path(dev, gen, counters, flash_ms: float) -> dict:
             decisive, equal, worst, gaps = ([0] * REQUESTS, [0] * REQUESTS,
                                             0.0, [])
             for step in range(MAX_NEW):
-                L = PROMPT_LEN + step
-                batch = torch.zeros((REQUESTS, -(-L // 128) * 128),
-                                    dtype=torch.int32, device=dev)
-                batch[:, :L] = torch.tensor(seqs, dtype=torch.int32,
-                                            device=dev)
-                logits = api_cut.forward(p_cut, {"tokens": batch})[:, L - 1]
+                logits = padded_logits(api_cut, p_cut, seqs, dev)
                 nxt, gap = (t.tolist() for t in top2(logits))
                 served = torch.tensor([r.out[step] for r in reqs],
                                       device=dev)
@@ -370,10 +381,404 @@ def model_path(dev, gen, counters, flash_ms: float) -> dict:
             if min(decisive) < 1:
                 raise AssertionError(f"a request had no decisive step: "
                                      f"{decisive}")
+            del server
+            torch.cuda.empty_cache()
+
+            # 7. the paged path, under the same tuning cache
+            paged = paged_path(dev, counters, api, params, api_cut, p_cut, d)
         finally:
             set_default_cache(prev)
     torch.cuda.synchronize()
-    return {"launches": launches}
+    return {"launches": launches, "paged_launches": paged}
+
+
+def top2(logits):
+    import torch
+    top = torch.topk(logits.float(), 2, dim=-1)
+    return top.indices[..., 0], top.values[..., 0] - top.values[..., 1]
+
+
+def padded_logits(api, params, seqs, dev):
+    """Each sequence's next-token logits (one row a sequence, f32) from
+    one forward over the batch padded right to a multiple of 128, so it
+    takes the flash gate (causal masking keeps the padding inert)."""
+
+    import torch
+    L = max(len(q) for q in seqs)
+    batch = torch.zeros((len(seqs), -(-L // 128) * 128), dtype=torch.int32,
+                        device=dev)
+    for i, q in enumerate(seqs):
+        batch[i, :len(q)] = torch.tensor(q, dtype=torch.int32, device=dev)
+    last = torch.tensor([len(q) - 1 for q in seqs], device=dev)
+    logits = api.forward(params, {"tokens": batch})
+    return logits[torch.arange(len(seqs), device=dev), last].float()
+
+
+def two_waves(server, prompts, max_new, after_tick=None) -> dict:
+    """Submit the first half of ``prompts``, tick until each of them is
+    decoding (or done), submit the rest and drain, calling
+    ``after_tick(server)`` after every tick.  Returns the requests, wall
+    time (host clock around synchronised work) and the most pages shared
+    on any tick."""
+
+    import torch
+    half = len(prompts) // 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [server.submit(q, max_new=max_new) for q in prompts[:half]]
+    shared = 0
+
+    def tick():
+        nonlocal shared
+        n = server.tick()
+        if server.alloc is not None:
+            shared = max(shared, server.alloc.shared_pages)
+        if after_tick is not None:
+            after_tick(server)
+        return n
+
+    for _ in range(10_000):
+        if all(r.out or r.done for r in reqs):
+            break
+        tick()
+    reqs += [server.submit(q, max_new=max_new) for q in prompts[half:]]
+    for _ in range(10_000):
+        if tick() == 0 and not server.queue:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(r.done and len(r.out) == max_new for r in reqs):
+        raise AssertionError(f"{len(reqs)} requests: not every one finished "
+                             f"with {max_new} tokens")
+    return {"reqs": reqs, "wall_s": wall, "max_shared_pages": shared}
+
+
+def tick_profile(server) -> dict:
+    """One engine tick under ``torch.profiler``: host time around it
+    (the tick ends in a sync), the device's busy time (the union of its
+    kernel and copy intervals) and idle share over the tick, the kernel
+    launches, and the three device ops that took the most time.  Device
+    fields are None when the trace holds no device event."""
+
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.tick()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.profiler.kineto_results.events()
+    device = sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in events if e.device_type() == DeviceType.CUDA),
+                    key=lambda ev: ev[1])
+    busy, end = 0, None
+    per_name: dict = collections.defaultdict(int)
+    for name, t_s, t_e in device:
+        per_name[name] += t_e - t_s
+        if end is None or t_s > end:
+            busy += t_e - t_s
+            end = t_e
+        elif t_e > end:
+            busy += t_e - end
+            end = t_e
+    copies = sum(n.startswith(("Memcpy", "Memset")) for n, _, _ in device)
+    busy_ms = busy / 1e6 if device else None
+    return {"profiled_host_ms": host_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / host_ms) if device else None,
+            "kernels": len(device) - copies if device else None,
+            "copies": copies if device else None,
+            "top_device_ops": [[n[:100], t / 1e6] for n, t in sorted(
+                per_name.items(), key=lambda kv: -kv[1])[:3]]}
+
+
+def first_divergence(api_cut, p_cut, prompts, got, want, d, dev) -> dict:
+    """Two drains' tokens of the same requests on the f32 cut, held by
+    phase 6(c)'s rule: up to a request's first differing step the
+    histories are equal, and that step must be a near tie of the offline
+    forward (top-2 gap < 10 d) with both tokens' logits within 10 d of
+    its maximum.  Later steps continue different histories and are not
+    compared."""
+
+    import torch
+    equal, diverged = 0, []
+    for r, (q, g, w) in enumerate(zip(prompts, got, want)):
+        if len(g) != len(w):
+            raise AssertionError(f"request {r}: {len(g)} != {len(w)} tokens")
+        k = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if k is None:
+            equal += len(g)
+            continue
+        equal += k
+        logits = padded_logits(api_cut, p_cut, [list(q) + w[:k]], dev)[0]
+        _, gap = top2(logits)
+        deficits = [float(logits.max() - logits[t]) for t in (g[k], w[k])]
+        if float(gap) >= GAP_MULT * d or max(deficits) > GAP_MULT * d:
+            raise AssertionError(
+                f"request {r} step {k}: {g[k]} != {w[k]} at top-2 gap "
+                f"{float(gap)}, deficits {deficits} (10 d = {GAP_MULT * d})")
+        diverged.append({"request": r, "step": k, "top2_gap": float(gap),
+                         "max_deficit": max(deficits)})
+        del logits
+    return {"tokens_equal": equal, "tokens": sum(len(w) for w in want),
+            "divergences": diverged}
+
+
+def backs_exactly_its_positions(server) -> None:
+    """After a tick each live slot backs ceil(pos / page_size) logical
+    pages and the pool holds no other page (no sharing), as a drain that
+    never speculated does at the same positions: a draft's pages past
+    the accepted tokens were rewound."""
+
+    alloc = server.alloc
+    ps, held = alloc.spec.page_size, 0
+    for s in server.live_slots():
+        backed = int((alloc.page_table[s] >= 0).sum())
+        want = -(-int(server.slot_pos[s]) // ps)
+        if backed != want:
+            raise AssertionError(f"slot {s} at {server.slot_pos[s]} backs "
+                                 f"{backed} pages, want {want}")
+        held += want
+    if alloc.free_pages != alloc.spec.n_pages - held:
+        raise AssertionError(f"{alloc.free_pages} free pages, want "
+                             f"{alloc.spec.n_pages - held}")
+
+
+class RecordingDrafter:
+    """Passes ``propose`` to a drafter and keeps every (history, draft)."""
+
+    def __init__(self, inner):
+        self.inner, self.name, self.calls = inner, inner.name, []
+
+    def propose(self, tokens, depth):
+        draft = self.inner.propose(tokens, depth)
+        self.calls.append((list(tokens), list(draft)))
+        return draft
+
+
+def drafts_against_target(api_cut, p_cut, calls, seqs, d, dev) -> dict:
+    """Each recorded draft against the target's own tokens after the same
+    history (``seqs``: each request's prompt + output).  At a draft's
+    first token that differs, the target's forward there must be a near
+    tie (top-2 gap < 10 d, both tokens within 10 d of its maximum): a
+    self-draft drafts with the target, so any other rejection is a wrong
+    forward."""
+
+    mismatches = []
+    for hist, draft in calls:
+        full = next(q for q in seqs if q[:len(hist)] == hist)
+        n = len(hist)
+        j = next((i for i, t in enumerate(draft) if t != full[n + i]), None)
+        if j is None:
+            continue
+        logits = padded_logits(api_cut, p_cut, [full[:n + j]], dev)[0]
+        _, gap = top2(logits)
+        deficits = [float(logits.max() - logits[t])
+                    for t in (draft[j], full[n + j])]
+        if float(gap) >= GAP_MULT * d or max(deficits) > GAP_MULT * d:
+            raise AssertionError(
+                f"draft token {draft[j]} != target {full[n + j]} at "
+                f"position {n + j}, top-2 gap {float(gap)}, deficits "
+                f"{deficits} (10 d = {GAP_MULT * d})")
+        mismatches.append({"position": n + j, "top2_gap": float(gap)})
+        del logits
+    return {"drafts": len(calls), "rejected_at_near_tie": mismatches}
+
+
+def paged_path(dev, counters, api, params, api_cut, p_cut, d) -> list[int]:
+    """Phase 7: the paged Server at qwen1.5-4b's full width.  (profile) one
+    decode tick, contiguous and paged, under ``torch.profiler``; (a)
+    paged, 8 requests of 512 + 16 in two waves through 112 pages; (b) the
+    same with ``share_prefix`` and the ``prefix`` scheduler; (d') n-gram
+    speculation on prompts of one token repeated, which this random model
+    continues with a repeated token, so drafts fire and most are accepted;
+    (d) self-draft speculation on the f32 cut, paged, against its
+    never-speculated paged drain.  Those are the path whose launches are
+    returned (the self-draft's forwards take the flash kernel).  Then the
+    checks: (c) paged with a shuffled free list and shared, against the
+    contiguous drain, on the f32 cut; (d)'s tokens against the
+    never-speculated drain's, and each of its drafts against the target's
+    tokens; (d')'s tokens against its never-speculated drain's, counted
+    (bf16 at full depth: not asserted)."""
+
+    import numpy as np
+    import torch
+    from repro_torch.runtime import DraftModelDrafter, Server
+
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, api.cfg.vocab, SHARED_PREFIX).tolist()
+    prompts = [prefix + rng.integers(0, api.cfg.vocab,
+                                     PROMPT_LEN - SHARED_PREFIX).tolist()
+               for _ in range(PAGED_REQUESTS)]
+    for c in counters:
+        c.launches = 0
+
+    # (profile) one decode tick with 4 decoding slots, contiguous and
+    # paged (full backing, so both hold the same 4 requests)
+    for mode, kw in (("contiguous", {}), ("paged", {"paged": True})):
+        server = Server(api, params, **SERVE, **kw)
+        reqs = [server.submit(q, max_new=MAX_NEW) for q in prompts[:4]]
+        while not all(r.out for r in reqs):
+            server.tick()
+        server.tick()                           # warm decode tick
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.tick()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        prof = tick_profile(server)
+        emit("paged", part="tick_profile", mode=mode, decoding_slots=4,
+             host_ms=host_ms, **prof)
+        del server, reqs
+    torch.cuda.empty_cache()
+
+    def serve_line(part, run, server, **extra):
+        n_tok = sum(len(r.out) for r in run["reqs"])
+        emit("paged", part=part, **PAGED, requests=PAGED_REQUESTS,
+             prompt_len=PROMPT_LEN, max_new=MAX_NEW, ticks=server.ticks,
+             wall_s=run["wall_s"], tokens=n_tok,
+             tok_per_s=n_tok / run["wall_s"], deferrals=server.deferrals,
+             peak_used_pages=server.peak_used_pages,
+             peak_active=server.peak_active, kv_stats=server.kv_stats(),
+             stats=server.stats(), **extra)
+
+    # (a) paged, full width, bf16
+    server = Server(api, params, **PAGED)
+    run_a = two_waves(server, prompts, MAX_NEW)
+    serve_line("paged_bf16", run_a, server)
+    out_a = [r.out for r in run_a["reqs"]]
+    del server
+
+    # (b) share_prefix: the last four map the first four's 16 pages
+    server = Server(api, params, **PAGED, share_prefix=True,
+                    scheduler="prefix")
+    run_b = two_waves(server, prompts, MAX_NEW)
+    equal = sum(x == y for o_a, o_b in zip(out_a, (r.out for r in
+                                                    run_b["reqs"]))
+                for x, y in zip(o_a, o_b))
+    serve_line("shared_bf16", run_b, server,
+               max_shared_pages=run_b["max_shared_pages"],
+               tokens_equal_to_paged=equal)
+    if run_b["max_shared_pages"] <= 0 or server.share_hits <= 0:
+        raise AssertionError("share_prefix never shared a page")
+    del server
+
+    # (d') n-gram speculation at full width: on (a)'s random prompts no
+    # n-gram recurs and nothing is drafted, so each prompt is one token
+    # repeated; after every tick each live slot backs exactly its
+    # positions (the paged verify, the length-gated commit and the rewind
+    # at 40 layers)
+    rep_prompts = [[t] * PROMPT_LEN for t in prefix[:PAGED_REQUESTS]]
+    server = Server(api, params, **PAGED, speculate="ngram",
+                    spec_depth=SPEC_DEPTH)
+    run = two_waves(server, rep_prompts, MAX_NEW,
+                    after_tick=backs_exactly_its_positions)
+    st = server.stats()
+    if st["spec_ticks"] <= 0 or st["spec_proposed"] <= 0:
+        raise AssertionError(f"the n-gram drafter drafted nothing: {st}")
+    ngram = (server, run)
+
+    # (d) self-draft on the f32 cut, paged, 4 requests: after every tick
+    # each live slot backs exactly its positions and the pool holds no
+    # other page
+    spec_prompts = prompts[:4]
+
+    def drain(**kw):
+        server = Server(api_cut, p_cut, **PAGED, **kw)
+        verified = {"slots": 0, "tokens": 0}
+        reqs = [server.submit(q, max_new=MAX_NEW) for q in spec_prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10_000):
+            before = {id(r): (len(r.out), r.spec_proposed)
+                      for r in server.slot_req if r is not None}
+            if server.tick() == 0 and not server.queue:
+                break
+            backs_exactly_its_positions(server)
+            for r in reqs:
+                if id(r) in before and r.spec_proposed > before[id(r)][1]:
+                    verified["slots"] += 1
+                    verified["tokens"] += len(r.out) - before[id(r)][0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not all(r.done and len(r.out) == MAX_NEW for r in reqs):
+            raise AssertionError("speculative drain did not finish")
+        return server, [r.out for r in reqs], verified, wall
+
+    base_srv, base_out, _, base_wall = drain()
+    drafter = RecordingDrafter(DraftModelDrafter(api_cut, p_cut, bucket=128))
+    spec_srv, spec_out, verified, spec_wall = drain(speculate=drafter,
+                                                    spec_depth=SPEC_DEPTH)
+    released = (spec_srv.alloc.free_pages == spec_srv.alloc.spec.n_pages
+                and bool((spec_srv.alloc.page_table < 0).all()))
+    if not released:
+        raise AssertionError("the speculative drain kept pages after its "
+                             "last request retired")
+    st = spec_srv.stats()
+    launches = [c.launches for c in counters]   # the path ends here
+
+    # (d')'s line, and its tokens against a never-speculated paged drain
+    server, run = ngram
+    ng_base = Server(api, params, **PAGED)
+    base = two_waves(ng_base, rep_prompts, MAX_NEW)
+    equal = sum(x == y for r, b in zip(run["reqs"], base["reqs"])
+                for x, y in zip(r.out, b.out))
+    serve_line("ngram_bf16", run, server, prompts="one token repeated",
+               accept_rate=server.stats()["accept_rate"],
+               tokens_equal_to_unspeculated=equal, base_ticks=ng_base.ticks,
+               base_wall_s=base["wall_s"])
+    del server, run, ng_base, base, ngram
+    torch.cuda.empty_cache()
+
+    # the checks: (c) paged (free list shuffled from a seed) and shared,
+    # each against the contiguous drain, on the f32 cut
+    runs = {}
+    for name, kw in (("contiguous", dict(SERVE)),
+                     ("paged_shuffled", dict(PAGED)),
+                     ("shared", dict(PAGED, share_prefix=True,
+                                     scheduler="prefix"))):
+        server = Server(api_cut, p_cut, **kw)
+        if server.alloc is not None:
+            server.alloc._free = [int(x) for x in np.random.default_rng(
+                3).permutation(server.alloc.spec.n_pages)]
+        run = two_waves(server, prompts, MAX_NEW)
+        runs[name] = ([r.out for r in run["reqs"]], server.stats(),
+                      run["max_shared_pages"])
+        del server
+    for name in ("paged_shuffled", "shared"):
+        cmp = first_divergence(api_cut, p_cut, prompts, runs[name][0],
+                               runs["contiguous"][0], d, dev)
+        emit("paged", part=f"{name}_vs_contiguous_f32_cut",
+             n_layers=DEPTH_CUT, gap_threshold=GAP_MULT * d,
+             share_hits=runs[name][1]["share_hits"],
+             max_shared_pages=runs[name][2], **cmp)
+    if runs["shared"][1]["share_hits"] <= 0:
+        raise AssertionError("the f32 shared drain never shared")
+
+    # (d)'s tokens against the never-speculated drain's, the same rule
+    cmp = first_divergence(api_cut, p_cut, spec_prompts, spec_out, base_out,
+                           d, dev)
+    emit("paged", part="self_draft_f32_cut", n_layers=DEPTH_CUT,
+         spec_depth=SPEC_DEPTH, accept_rate=st["accept_rate"],
+         spec_ticks=st["spec_ticks"], ticks=spec_srv.ticks,
+         base_ticks=base_srv.ticks, verified_slots=verified["slots"],
+         tokens_per_verified_slot=(verified["tokens"] / verified["slots"]
+                                   if verified["slots"] else None),
+         wall_s=spec_wall, base_wall_s=base_wall,
+         released_every_page=released, gap_threshold=GAP_MULT * d,
+         **drafts_against_target(api_cut, p_cut, drafter.calls,
+                                 [list(q) + o for q, o in
+                                  zip(spec_prompts, spec_out)], d, dev),
+         **cmp)
+    if verified["slots"] <= 0:
+        raise AssertionError("self-draft never verified a draft")
+    del base_srv, spec_srv
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -743,8 +1148,16 @@ def main() -> int:
     if model["launches"][names.index("flash_attention")] <= 0:
         raise AssertionError("flash attention never launched on the model "
                              "path")
-    for kernel, n in zip(names, model["launches"]):
-        launches[kernel] += n
+    emit("kernels", phase_of="paged", launches=dict(zip(
+        names, model["paged_launches"])))
+    # the paged path attends its pages with plain ops; the self-draft's
+    # forwards go through the flash kernel
+    if model["paged_launches"][names.index("flash_attention")] <= 0:
+        raise AssertionError("flash attention never launched on the paged "
+                             "path")
+    for kernel, n, m in zip(names, model["launches"],
+                            model["paged_launches"]):
+        launches[kernel] += n + m
 
     sources = {"tuned_reduction": ("src/repro_torch/csrc/tuned_reduction.cu",
                                    "src/repro/kernels/tuned_reduction/kernel.py:76"),

@@ -77,8 +77,9 @@ def params_from_jax(tree, device=None) -> dict:
 
 
 def decode_state_from_jax(tree, device=None) -> dict:
-    """The port's decode state (KV rings) from the JAX package's, given
-    as numpy arrays; same layout as :func:`params_from_jax`."""
+    """The port's decode state from the JAX package's, given as numpy
+    arrays: KV rings, or a paged state's page pool (``(L, n_pages, Hkv,
+    page_size, hd)`` leaves); same layout as :func:`params_from_jax`."""
 
     return _tree_from_numpy(tree, resolve_device(device))
 

@@ -1,5 +1,5 @@
 """Unified model API for dense decoders (the port's copy of
-``repro.models.api``, contiguous caches).
+``repro.models.api``).
 
 ``build_model(cfg)`` returns a :class:`ModelAPI` whose functions take the
 parameter tree first:
@@ -7,9 +7,10 @@ parameter tree first:
 * ``init(generator, device)``      — bf16 weights made on the device
 * ``loss(params, batch)``          — forward + CE loss
 * ``forward(params, batch)``       — logits (the serving-prefill form)
-* ``decode_state_specs(B, ctx)``   — per-block KV rings as a PSpec tree
+* ``decode_state_specs(B, ctx, paged)`` — per-block KV rings, or with
+  ``paged`` a shared page pool, as a PSpec tree
 * ``decode_step`` / ``prefill_step`` / ``verify_step`` — the serving
-  steps over those rings
+  steps over that state (``page_table=`` addresses the pool)
 
 Decode state is a tree with a stacked leading blocks dim, walked in
 lock-step with the stacked block params.  The serving steps write the
@@ -76,19 +77,22 @@ class ModelAPI:
     # -- decode ---------------------------------------------------------
     def decode_block_specs(self, batch: int, context: int, paged: Any = None,
                            dtype: Any = None) -> dict:
-        """Decode state of ONE block (unstacked): its KV rings.  ``dtype``
-        overrides the KV storage dtype (default bfloat16): pass the
-        params' dtype to keep a float32 model float32 through the
-        cache."""
+        """Decode state of ONE block (unstacked): its KV rings, or with
+        ``paged`` (a :class:`~repro_torch.runtime.kv.PagedKVSpec`) a
+        ``(n_pages, Hkv, page_size, hd)`` pool that slots address through
+        the page table given to the steps.  ``dtype`` overrides the KV
+        storage dtype (default bfloat16): pass the params' dtype to keep a
+        float32 model float32 through the cache."""
 
-        if paged is not None:
-            raise NotImplementedError(
-                "paged KV is not ported yet (ROADMAP queue 1, item 17)")
         kinds, _ = _block_plan(self.cfg)
-        C = _cache_len(self.cfg, context)
-        return {f"{i}_{kind}": {"kv": attn.kv_cache_specs(self.cfg, batch, C,
-                                                          dtype=dtype)}
-                for i, kind in enumerate(kinds)}
+        if paged is not None:
+            kv = attn.kv_pool_specs(self.cfg, paged.n_pages, paged.page_size,
+                                    dtype=dtype)
+        else:
+            kv = attn.kv_cache_specs(self.cfg, batch,
+                                     _cache_len(self.cfg, context),
+                                     dtype=dtype)
+        return {f"{i}_{kind}": {"kv": kv} for i, kind in enumerate(kinds)}
 
     def decode_state_specs(self, batch: int, context: int, paged: Any = None,
                            dtype: Any = None) -> dict:
@@ -98,7 +102,8 @@ class ModelAPI:
 
     def init_decode_state(self, batch: int, context: int, paged: Any = None,
                           dtype: Any = None, device=None):
-        """Zeroed KV rings on ``device`` (``cuda:0`` by default)."""
+        """Zeroed KV rings (or pool) on ``device`` (``cuda:0`` by
+        default)."""
 
         dev = resolve_device(device)
         specs = self.decode_state_specs(batch, context, paged, dtype)
@@ -114,25 +119,37 @@ class ModelAPI:
         ``cur_len`` is a scalar token count or a (B,) vector of per-slot
         counts.  ``active`` ((B,) bool, default all) gates the KV writes
         per slot: an idle or prefilling slot of a serving batch keeps its
-        ring untouched (its logits are garbage the caller discards)."""
+        ring (or the pool) untouched (its logits are garbage the caller
+        discards).  ``page_table`` ((B, M) int32, -1 = unallocated)
+        switches the state to the paged pool layout."""
 
-        if page_table is not None:
-            raise NotImplementedError(
-                "paged KV is not ported yet (ROADMAP queue 1, item 17)")
         cfg = self.cfg
         kinds, n_blocks = _block_plan(cfg)
         x = _embed(params, tokens)                          # (B, 1, d)
-        cur_len = attn.per_slot(cur_len, tokens.shape[0], x.device)
+        B = tokens.shape[0]
+        cur_len = attn.per_slot(cur_len, B, x.device)
+        writes = None
+        if page_table is not None:
+            if active is None:
+                active = torch.ones(B, dtype=torch.bool, device=x.device)
+            writes = attn.paged_writes(page_table, cur_len[:, None],
+                                       active[:, None],
+                                       self._page_size(state))
         for i in range(n_blocks):
             bp = block_params(params["blocks"], i)
             cache = block_params(state["blocks"], i)
             for j, kind in enumerate(kinds):
                 key = f"{j}_{kind}"
                 p, c = bp[key], cache[key]
-                a, _ = attn.decode_attention(p["attn"], cfg,
-                                             rms_norm(x, p["ln1"]), c["kv"],
-                                             cur_len, window=cfg.window,
-                                             active=active)
+                h = rms_norm(x, p["ln1"])
+                if page_table is None:
+                    a, _ = attn.decode_attention(p["attn"], cfg, h, c["kv"],
+                                                 cur_len, window=cfg.window,
+                                                 active=active)
+                else:
+                    a, _ = attn.decode_attention_paged(
+                        p["attn"], cfg, h, c["kv"], page_table, cur_len,
+                        writes, window=cfg.window)
                 x = x + a
                 x = x + mlp_forward(p["ffn"], cfg, rms_norm(x, p["ln2"]))
         return _logits(params, cfg, x)[:, 0], state
@@ -168,8 +185,10 @@ class ModelAPI:
         NOT written: the reference returns a state holding the chunk's
         writes, which its callers discard before committing the accepted
         prefix with ``prefill_step``.  Here the chunk's keys are attended
-        and never stored, so the returned state is the one given,
-        untouched.  Positions past ``lengths`` hold garbage logits."""
+        and never stored (with a ``page_table``, they are placed in the
+        gathered copies of the slot's pages, never in the shared pool),
+        so the returned state is the one given, untouched.  Positions
+        past ``lengths`` hold garbage logits."""
 
         x, state, _ = self._chunk_forward(params, state, tokens, positions,
                                           lengths, page_table, write=False)
@@ -181,9 +200,6 @@ class ModelAPI:
         ``verify_step``: embed + chunk attention over the blocks.
         Returns ``(hidden (B, T, d), state, lengths (B,))``."""
 
-        if page_table is not None:
-            raise NotImplementedError(
-                "paged KV is not ported yet (ROADMAP queue 1, item 17)")
         cfg = self.cfg
         kinds, n_blocks = _block_plan(cfg)
         B, T = tokens.shape
@@ -191,18 +207,38 @@ class ModelAPI:
         positions = attn.per_slot(positions, B, x.device)
         lengths = attn.per_slot(T if lengths is None else lengths, B,
                                 x.device)
+        writes = None
+        if page_table is not None:
+            t_idx = torch.arange(T, device=x.device)[None, :]
+            writes = attn.paged_writes(page_table, positions[:, None] + t_idx,
+                                       t_idx < lengths[:, None],
+                                       self._page_size(state))
         for i in range(n_blocks):
             bp = block_params(params["blocks"], i)
             cache = block_params(state["blocks"], i)
             for j, kind in enumerate(kinds):
                 key = f"{j}_{kind}"
                 p, c = bp[key], cache[key]
-                a, _ = attn.decode_attention_chunked(
-                    p["attn"], cfg, rms_norm(x, p["ln1"]), c["kv"],
-                    positions, lengths, window=cfg.window, write=write)
+                h = rms_norm(x, p["ln1"])
+                if page_table is None:
+                    a, _ = attn.decode_attention_chunked(
+                        p["attn"], cfg, h, c["kv"], positions, lengths,
+                        window=cfg.window, write=write)
+                else:
+                    a, _ = attn.decode_attention_chunked_paged(
+                        p["attn"], cfg, h, c["kv"], page_table, positions,
+                        writes, window=cfg.window, write=write)
                 x = x + a
                 x = x + mlp_forward(p["ffn"], cfg, rms_norm(x, p["ln2"]))
         return x, state, lengths
+
+    @staticmethod
+    def _page_size(state) -> int:
+        """Tokens a page of the paged pool state (stacked blocks first:
+        (L, P, Hkv, page_size, hd))."""
+
+        entry = next(iter(state["blocks"].values()))
+        return entry["kv"]["k"].shape[3]
 
 
 def build_model(cfg: ArchConfig) -> ModelAPI:

@@ -1,7 +1,8 @@
 """GQA attention (the port's copy of ``repro.models.attention``, dense
 paths): qk-norm / qkv-bias / sliding-window / RoPE variants,
 full-sequence (train / prefill), single-token cached decode, and chunked
-cached prefill over contiguous per-slot KV rings.
+cached prefill over contiguous per-slot KV rings or a shared pool of KV
+pages addressed through per-slot page tables.
 
 Plain PyTorch math by default; ``use_flash=True`` routes full-sequence
 self-attention through the ``@autotune``d hand-written CUDA flash kernel
@@ -14,8 +15,12 @@ refuses take the plain math in both packages.
 Unlike the reference, whose functions return new caches, the cached
 paths here write the caches IN PLACE (a qwen1.5-4b serving state is
 1.7 GB; a functional copy per step would move it all every tick).  They
-return the same dict they were given.  Paged and cross attention are
-not ported yet (ROADMAP queue 1, items 17 and 19).
+return the same dict they were given.  The paged writes are indexed
+writes of only the gated tokens (:func:`paged_writes`), where the
+reference scatters through a one-hot ``(B, P, page_size)`` match and
+``argmax``; pages are slot-exclusive and positions unique, so both land
+the same values.  Cross attention is not ported yet (ROADMAP queue 1,
+item 19).
 """
 
 from __future__ import annotations
@@ -346,6 +351,155 @@ def _grouped_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return og.reshape(B, H, T, hd)
 
 
+# ---------------------------------------------------------------------------
+# Paged cached decode (shared page pool instead of per-slot rings)
+# ---------------------------------------------------------------------------
+
+
+def kv_pool_specs(cfg: ArchConfig, n_pages: int, page_size: int,
+                  dtype: Any = None) -> dict:
+    """Paged KV storage for one block: a POOL of ``n_pages`` fixed-size
+    pages shared by every serving slot, addressed through per-slot page
+    tables (:mod:`repro_torch.runtime.kv`), the paged sibling of
+    :func:`kv_cache_specs`.  ``dtype`` as there."""
+
+    Hkv, hd = cfg.n_kv_heads, cfg.hd
+    dt = dtype if dtype is not None else DEFAULT_DTYPE
+    return {
+        "k": PSpec((n_pages, Hkv, page_size, hd),
+                   ("cache_batch", "kv_heads", None, "head_dim"),
+                   init="zeros", dtype=dt),
+        "v": PSpec((n_pages, Hkv, page_size, hd),
+                   ("cache_batch", "kv_heads", None, "head_dim"),
+                   init="zeros", dtype=dt),
+    }
+
+
+def _gather_pool(pool_kv: torch.Tensor,
+                 page_table: torch.Tensor) -> torch.Tensor:
+    """(P, Hkv, ps, hd) pool -> (B, Hkv, M*ps, hd) per-slot linear view
+    through the page table, a copy (unallocated entries gather page 0:
+    callers mask them by ``page_table >= 0``)."""
+
+    g = pool_kv[torch.clamp(page_table, min=0)]     # (B, M, Hkv, ps, hd)
+    B, M, Hkv, ps, hd = g.shape
+    return g.transpose(1, 2).reshape(B, Hkv, M * ps, hd)
+
+
+def _pool_validity(page_table: torch.Tensor, page_size: int) -> torch.Tensor:
+    """(B, M*ps) bool: which linear positions are backed by a live page."""
+
+    return torch.repeat_interleave(page_table >= 0, page_size, dim=1)
+
+
+def paged_writes(page_table: torch.Tensor, pos: torch.Tensor,
+                 gate: torch.Tensor, page_size: int) -> tuple:
+    """Where a step's gated tokens land in the pool.
+
+    pos: (B, T) absolute positions; gate: (B, T) bool, the tokens that
+    write (``active`` for decode, ``t < lengths`` for a chunk).  A token
+    writes page ``page_table[b, pos // ps]`` at offset ``pos % ps`` when
+    it is gated AND that page is backed: an entry of -1 writes nothing
+    (never page 0 through a clipped index).  Returns the index tensors
+    ``(b, t, phys, off, lp)`` of the writes that happen, ``lp`` the
+    logical page.  Reads the gate back to the host once
+    (``nonzero``); the indices are the same for every block, so a step
+    computes them once."""
+
+    M = page_table.shape[1]
+    lp = torch.clamp(torch.div(pos, page_size, rounding_mode="floor"),
+                     0, M - 1)
+    phys = torch.take_along_dim(page_table.long(), lp, dim=1)
+    b, t = torch.nonzero(gate & (phys >= 0), as_tuple=True)
+    return b, t, phys[b, t], torch.remainder(pos, page_size)[b, t], lp[b, t]
+
+
+def _paged_kv(pool: dict, page_table: torch.Tensor, writes: tuple,
+              k_new: torch.Tensor, v_new: torch.Tensor, *, write: bool):
+    """The slot's linear K/V views (B, Hkv, M*ps, hd) holding this
+    step's new tokens.  ``write``: store them in the pool, in place, then
+    gather; else gather and place them in the gathered copies only, so
+    the shared pool is never touched."""
+
+    b, t, phys, off, lp = writes
+    ps = pool["k"].shape[2]
+    out = []
+    for name, new in (("k", k_new), ("v", v_new)):
+        buf = pool[name]
+        val = new[b, :, t].to(buf.dtype)            # (n, Hkv, hd)
+        if write:
+            buf[phys, :, off] = val
+            out.append(_gather_pool(buf, page_table))
+        else:
+            lin = _gather_pool(buf, page_table)
+            lin[b, :, lp * ps + off] = val
+            out.append(lin)
+    return out
+
+
+def decode_attention_chunked_paged(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                                   pool: dict, page_table: torch.Tensor,
+                                   cur_len, writes: tuple, *,
+                                   window: int | None = None,
+                                   write: bool = True
+                                   ) -> tuple[torch.Tensor, dict]:
+    """Chunked cached prefill against a paged pool: the paged sibling of
+    :func:`decode_attention_chunked`.
+
+    x: (B, T, d); pool["k"/"v"]: (P, Hkv, page_size, hd) shared by all
+    slots; page_table: (B, M) physical page per logical page (-1 =
+    unallocated); cur_len: (B,) tokens already cached per slot.
+    ``writes`` is :func:`paged_writes`' result for this step: it holds
+    the gate (the reference's ``lengths`` for a chunk, ``active`` for
+    decode), and padding rows (idle or decoding neighbours) write no
+    page.  Paged positions are unique (no wraparound inside a chunk), so
+    the chunk's gated K/V is stored first and queries attend the updated
+    pages directly through a page-table gather: every key position
+    ``<= qp`` is genuinely written, the chunk-causal mask plus "is the
+    page live" does the rest.  ``write=False`` (the speculative
+    verifier's forward) places the chunk's K/V in the gathered copies
+    only and leaves the pool untouched.  Returns (output, pool)."""
+
+    B, T, d = x.shape
+    ps = pool["k"].shape[2]
+    M = page_table.shape[1]
+    dev = x.device
+    cur_len = per_slot(cur_len, B, dev)
+    pos = cur_len[:, None] + torch.arange(T, device=dev)[None, :]
+    q, k_new, v_new = _project_qkv(p, cfg, x, x)
+    if cfg.use_rope:
+        q = rope(q, pos, cfg.rope_theta)
+        k_new = rope(k_new, pos, cfg.rope_theta)
+    k, v = _paged_kv(pool, page_table, writes, k_new, v_new, write=write)
+
+    kp = torch.arange(M * ps, device=dev)[None, None, :]    # (1, 1, M*ps)
+    qp = pos[:, :, None]                                # (B, T, 1)
+    mask = (kp <= qp) & _pool_validity(page_table, ps)[:, None, :]
+    if window is not None:
+        mask &= kp >= qp - window + 1
+    mask = mask[:, None, None, :, :]                    # (B, 1, 1, T, M*ps)
+
+    o = _grouped_sdpa(q, k, v, mask, cfg.hd ** -0.5).to(x.dtype)
+    out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+    return out, pool
+
+
+def decode_attention_paged(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                           pool: dict, page_table: torch.Tensor, cur_len,
+                           writes: tuple, *, window: int | None = None
+                           ) -> tuple[torch.Tensor, dict]:
+    """One-token attention against a paged pool, writing it in place: the
+    paged sibling of :func:`decode_attention`, and
+    :func:`decode_attention_chunked_paged` at T = 1.  x: (B, 1, d);
+    ``writes`` from :func:`paged_writes` with positions ``cur_len`` and
+    the per-slot ``active`` gate."""
+
+    return decode_attention_chunked_paged(p, cfg, x, pool, page_table,
+                                          cur_len, writes, window=window)
+
+
 __all__ = ["attn_specs", "attention", "decode_attention",
-           "decode_attention_chunked", "kv_cache_specs", "per_slot",
-           "NEG_INF", "Q_CHUNK_THRESHOLD", "Q_CHUNK"]
+           "decode_attention_chunked", "decode_attention_paged",
+           "decode_attention_chunked_paged", "kv_cache_specs",
+           "kv_pool_specs", "paged_writes", "per_slot", "NEG_INF",
+           "Q_CHUNK_THRESHOLD", "Q_CHUNK"]

@@ -22,7 +22,7 @@ pages fit right now, ``server.live_slots()`` / ``server.slot_request`` /
 ``server.slot_seq`` expose the occupied slots, their requests, and
 admission order, and ``server.shared_prefix_len(req)`` /
 ``server.is_share_source(slot)`` expose the copy-on-write prefix index
-(the paged allocator's ``share``; the port has no paged mode yet).
+(the paged allocator's ``share``).
 
 Three policies ship behind the ``register_scheduler`` registry:
 
@@ -45,9 +45,10 @@ Three policies ship behind the ``register_scheduler`` registry:
 
 In the reference the policy choice itself is a tunable
 (``serve.scheduler``); the port's serving tunables are not ported yet
-(ROADMAP queue 1, item 16).  The port's ``Server`` has contiguous KV
-rings only, so the page hooks (``admit_fits``, ``shared_prefix_len``,
-``is_share_source``) answer as a contiguous server does.
+(ROADMAP queue 1, item 16).  A paged ``Server`` answers the page hooks
+(``admit_fits``, ``shared_prefix_len``, ``is_share_source``) from its
+:class:`~repro_torch.runtime.kv.PagedKVAllocator`; a contiguous one as
+the reference's does (always fits, nothing shared).
 """
 
 from __future__ import annotations

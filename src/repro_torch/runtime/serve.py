@@ -1,5 +1,5 @@
-"""Batched serving runtime (the port's copy of ``repro.runtime.serve``,
-contiguous caches): fixed-slot continuous batching with chunked prefill.
+"""Batched serving runtime (the port's copy of ``repro.runtime.serve``):
+fixed-slot continuous batching with chunked prefill.
 
 ``Server`` keeps ``batch`` decode slots alive; requests are admitted
 into free slots by a :class:`~repro_torch.runtime.scheduler.Scheduler`
@@ -20,8 +20,30 @@ lengths (0 for every slot not prefilling) — so a prefill tick cannot
 scatter a token into a decoding neighbour's ring, nor a decode tick
 into an idle or prefilling slot's ring.
 
-Not ported yet: ``paged=`` and ``share_prefix=`` (ROADMAP queue 1,
-item 17), ``speculate=`` (item 18) and ``obs=`` (item 20) raise
+``paged=True`` swaps the per-slot rings for a shared pool of
+``page_size``-token pages (:mod:`repro_torch.runtime.kv`): a request is
+admitted when its pages fit the free pool, pages are allocated as
+prefill chunks and decode steps advance, and a tick that runs out of
+pages **preempts** a policy-chosen victim (its pages released, the
+request requeued with prompt AND generated tokens, re-prefilled on
+resume).  A sliding-window model hands back pages that fell out of the
+window.  ``share_prefix=True`` (paged only) maps the pages of a live
+slot's written prefix into a new request's table (copy on write: the
+first write into a still-shared page copies it first), so N requests
+with one system prompt prefill it once.
+
+``speculate=`` (a drafter, :mod:`repro_torch.runtime.speculate`) adds a
+third per-tick population: decoding slots with a draft verify
+``depth+1`` tokens in one ``verify_step`` chunk, accept the longest
+greedy-matching prefix plus the verifier's bonus token, and commit
+exactly the accepted tokens with a length-gated ``prefill_step``; in
+paged mode the pages taken for rejected drafts are rewound, so the page
+table matches a drain that never speculated.  Output is the baseline
+greedy stream, up to floating-point argmax ties (the commit chunk
+reduces in another order than one-token decodes; float32 params keep
+the real logit gaps).
+
+Not ported yet: ``obs=`` (ROADMAP queue 1, item 20) raises
 ``ValueError``.
 """
 
@@ -35,12 +57,14 @@ import torch
 
 from ..models.api import ModelAPI
 from ..models.common import tree_leaves
+from .kv import NO_PAGE, PagedKVAllocator, PagedKVSpec
 from .scheduler import Scheduler, make_scheduler
+from .speculate import make_drafter
 
 
 def _snapshot(a: np.ndarray, device) -> torch.Tensor:
     """A device tensor holding a COPY of a host array the engine keeps
-    mutating (``slot_pos``).
+    mutating (``slot_pos``, the page table).
 
     ``torch.from_numpy`` aliases the numpy buffer, and a non-blocking
     copy from pinned memory runs after the host has moved on, so a step
@@ -63,45 +87,75 @@ class Request:
     deadline: float | None = None   # absolute driver-clock deadline
     skips: int = 0              # admissions that bypassed this request
     preempted: int = 0          # times evicted mid-flight (progress kept)
+    shared_prefix: int = 0      # tokens admitted via COW page sharing
+    spec_proposed: int = 0      # draft tokens verified for this request
+    spec_accepted: int = 0      # of those, accepted into the output
 
 
 class Server:
     def __init__(self, api: ModelAPI, params, *, batch: int, context: int,
-                 prefill_chunk: int = 32, scheduler: str | Scheduler | None = None,
-                 paged: bool = False, speculate: Any = None,
+                 prefill_chunk: int = 32, paged: bool = False,
+                 page_size: int = 16, kv_pages: int | None = None,
+                 speculate: Any = None, spec_depth: int = 4,
+                 scheduler: str | Scheduler | None = None,
                  share_prefix: bool = False, obs: Any = None):
-        for flag, on, item in (("paged", paged, 17),
-                               ("share_prefix", share_prefix, 17),
-                               ("speculate", speculate is not None, 18),
-                               ("obs", obs is not None, 20)):
-            if on:
-                raise ValueError(f"{flag}= is not ported yet (ROADMAP "
-                                 f"queue 1, item {item})")
+        if obs is not None:
+            raise ValueError("obs= is not ported yet (ROADMAP queue 1, "
+                             "item 20)")
+        self.share_prefix = bool(share_prefix)
+        if self.share_prefix and not paged:
+            raise ValueError(
+                "share_prefix=True needs paged=True: prefix sharing maps "
+                "KV pages between slot page tables, contiguous rings have "
+                "none")
+        if self.share_prefix and api.cfg.is_encdec:
+            raise ValueError(
+                "share_prefix=True is unsupported for encoder-decoder "
+                "models: per-slot cross-K/V is not positionally sharable")
         self.api = api
         self.params = params
         self.batch = batch
         self.context = context
         self.prefill_chunk = max(1, min(prefill_chunk, context))
-        self.paged = False
+        self.paged = paged
         self.scheduler = make_scheduler(scheduler)
-        # KV rings follow the params' dtype and device: a float32 model
+        self.drafter = None
+        self.spec_depth = max(1, min(spec_depth, context - 1))
+        if speculate is not None:
+            self.drafter = make_drafter(speculate, api=api, params=params)
+        self.alloc: PagedKVAllocator | None = None
+        if paged:
+            spec = PagedKVSpec.for_server(context=context,
+                                          page_size=page_size,
+                                          n_pages=kv_pages, batch=batch)
+            self.alloc = PagedKVAllocator(spec, batch)
+        # KV caches follow the params' dtype and device: a float32 model
         # keeps a float32 cache (greedy parity needs the real logit gaps)
         leaf = next(t for t in tree_leaves(params)
                     if isinstance(t, torch.Tensor) and t.is_floating_point())
         self.device = leaf.device
-        self.state = api.init_decode_state(batch, context, dtype=leaf.dtype,
-                                           device=self.device)
+        self.state = api.init_decode_state(
+            batch, context, self.alloc.spec if paged else None,
+            dtype=leaf.dtype, device=self.device)
         self.slot_req: list[Request | None] = [None] * batch
         self.slot_pos = np.zeros(batch, np.int32)   # per-slot token count
         self._slot_seq = np.zeros(batch, np.int64)  # admission order
         self._seq = 0
+        self.deferrals = 0          # paged: evictions forced by page OOM
         self.preemptions = 0        # policy-initiated evictions (SLO)
         self.peak_active = 0
+        self.peak_used_pages = 0
         # per-drain counters behind stats()
         self.ticks = 0
         self.slot_ticks = 0         # sum of active slots over ticks
         self.tokens_generated = 0
         self.prefill_chunks = 0
+        self.spec_ticks = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.share_hits = 0         # placements that mapped a prefix
+        self.shared_tokens = 0      # prompt tokens admitted without prefill
+        self.cow_copies = 0         # pages copied by write-triggered COW
         self.queue: list[Request] = []
         self.completed: list[Request] = []
 
@@ -150,15 +204,35 @@ class Server:
         return self.slot_req[slot]
 
     def admit_fits(self, req: Request) -> bool:
-        """Contiguous rings: a free slot always has its full ring."""
+        """Would ``req``'s pages fit right now?  Contiguous mode always
+        fits (a free slot has a full ring reserved); paged mode needs
+        the full stream's pages minus any full pages a live shared
+        prefix would map in for free."""
 
-        return True
+        if not self.paged:
+            return True
+        need = self.alloc.pages_needed(len(req.prompt) + len(req.out))
+        if self.share_prefix:
+            _, shared = self._find_share_source(req)
+            need -= shared // self.alloc.spec.page_size
+        return (need <= self.alloc.spec.pages_per_slot
+                and need <= self.alloc.free_pages)
 
     def shared_prefix_len(self, req: Request) -> int:
-        return 0
+        """Tokens a placement of ``req`` would map in via COW sharing
+        right now (0 when sharing is off or nothing matches)."""
+
+        if not self.share_prefix:
+            return 0
+        return self._find_share_source(req)[1]
 
     def is_share_source(self, slot: int) -> bool:
-        return False
+        """Does ``slot`` map at least one refcount>1 page?"""
+
+        if self.alloc is None:
+            return False
+        return any(int(self.alloc.refcount[p]) > 1
+                   for p in self.alloc.slot_pages(slot))
 
     # -- admission / placement / preemption ---------------------------------
 
@@ -182,30 +256,132 @@ class Server:
                 self._place(slot, self.queue.pop(idx))
 
     def _place(self, slot: int, req: Request) -> None:
-        """Bind ``req`` to ``slot``; its prefill target is
-        ``len(prompt) + len(out)``, so a preempted request re-prefills its
-        generated tokens too and resumes where it left off.  The slot's
-        ring keeps the previous occupant's K/V: positions at or past the
-        new request's own count are masked until overwritten."""
+        """Bind ``req`` to ``slot``: the COW prefix share (paged +
+        ``share_prefix``) and the prefill target, ``len(prompt) +
+        len(out)``, so a preempted request re-prefills its generated
+        tokens too and resumes where it left off.  A reused ring or page
+        keeps the previous occupant's K/V: positions at or past the new
+        request's own count are masked until overwritten."""
 
         self.slot_req[slot] = req
         self._slot_seq[slot] = self._seq
         self._seq += 1
         req._prefill_target = (len(req.prompt)  # type: ignore[attr-defined]
                                + len(req.out))
-        self.slot_pos[slot] = 0
-        req._cursor = 0  # type: ignore[attr-defined]
+        start = 0
+        if self.share_prefix:
+            src, shared = self._find_share_source(req)
+            if src is not None and self.alloc.share(src, slot, shared):
+                start = shared
+                req.shared_prefix = max(req.shared_prefix, shared)
+                self.share_hits += 1
+                self.shared_tokens += shared
+        self.slot_pos[slot] = start
+        req._cursor = start  # type: ignore[attr-defined]
+
+    def _backed_prefix(self, slot: int) -> int:
+        """Tokens from position 0 whose pages ``slot`` still maps (the SWA
+        trim can have freed low pages: those positions cannot be shared
+        from)."""
+
+        n = 0
+        for p in self.alloc.page_table[slot]:
+            if p == NO_PAGE:
+                break
+            n += 1
+        return n * self.alloc.spec.page_size
+
+    def _find_share_source(self, req: Request) -> tuple[int | None, int]:
+        """The live slot with the longest written, still-backed common
+        prefix against ``req``'s stream, capped one short of the stream
+        (at least one token must prefill to emit the next).  Sub-page
+        matches return (None, 0): they would save no whole page and
+        immediately pay a COW copy."""
+
+        stream = req.prompt + req.out
+        cap = len(stream) - 1
+        best, best_len = None, 0
+        for s in range(self.batch):
+            src = self.slot_req[s]
+            if src is None:
+                continue
+            written = (src.prompt + src.out)[:int(self.slot_pos[s])]
+            m = min(len(written), cap, self._backed_prefix(s))
+            n = 0
+            while n < m and stream[n] == written[n]:
+                n += 1
+            if n > best_len:
+                best, best_len = s, n
+        if best_len < self.alloc.spec.page_size:
+            return None, 0
+        return best, best_len
 
     def _preempt(self, slot: int) -> None:
-        """Evict ``slot`` mid-flight: the request goes back to the FRONT
-        of the queue with prompt and generated tokens intact."""
+        """Evict ``slot`` mid-flight: its pages released (refcounts
+        decremented; pages shared with other slots survive), the request
+        back at the FRONT of the queue with prompt and generated tokens
+        intact."""
 
         req = self.slot_req[slot]
         req._cursor = 0  # type: ignore[attr-defined]
         req.preempted += 1
         self.queue.insert(0, req)
+        if self.paged:
+            self.alloc.release(slot)
         self.slot_req[slot] = None
         self.slot_pos[slot] = 0
+
+    def _evict_for(self, slot: int) -> int | None:
+        """Page-OOM backpressure: the policy names a victim, the engine
+        preempts it.  Returns the victim (None = nothing live)."""
+
+        victim = self.scheduler.victim(self)
+        if victim is not None:
+            self._preempt(victim)
+            self.deferrals += 1
+        return victim
+
+    def _ensure_pages(self, slot: int, n_tokens: int) -> bool:
+        """Back ``slot`` through ``n_tokens`` positions, evicting
+        policy-chosen victims until the allocation fits; False when
+        ``slot`` itself was evicted (skip it this tick)."""
+
+        while not self.alloc.ensure(slot, n_tokens):
+            victim = self._evict_for(slot)
+            if victim is None or victim == slot:
+                return False
+        return True
+
+    def _cow_range(self, slot: int, start: int,
+                   end: int) -> list[tuple[int, int]]:
+        """Break page sharing before ``slot`` writes positions
+        ``[start, end)``, with the eviction backpressure of
+        :meth:`_ensure_pages` when the copy needs pages the free list
+        lacks.  Returns the (src, dst) pairs for :meth:`_copy_pages`
+        (empty when nothing was shared or ``slot`` itself was
+        evicted)."""
+
+        while True:
+            pairs = self.alloc.cow_pages(slot, start, end)
+            if pairs is not None:
+                return pairs
+            victim = self._evict_for(slot)
+            if victim is None or victim == slot:
+                return []
+
+    def _copy_pages(self, pairs: list[tuple[int, int]]) -> None:
+        """Device half of COW: clone the src pages' K/V into the fresh dst
+        pages of every block's pool (page dim = axis 1 of the stacked
+        leaves), in place.  The table already points at dst; positions
+        beyond the writer's own count hold the source's K/V, which the
+        position mask keeps unattended until overwritten."""
+
+        src = torch.tensor([p[0] for p in pairs], device=self.device)
+        dst = torch.tensor([p[1] for p in pairs], device=self.device)
+        for entry in self.state["blocks"].values():
+            for buf in entry["kv"].values():
+                buf[:, dst] = buf[:, src]
+        self.cow_copies += len(pairs)
 
     def _phase(self, slot: int) -> str:
         req = self.slot_req[slot]
@@ -219,10 +395,32 @@ class Server:
             req.done = True
             self.completed.append(req)
             self.slot_req[slot] = None
+            if self.paged:
+                self.alloc.release(slot)
+
+    def kv_stats(self) -> dict[str, float]:
+        """Cache occupancy snapshot: live tokens against reserved
+        capacity (plus the allocator's fragmentation and sharing, and the
+        eviction counters, in paged mode)."""
+
+        live = sum(int(self.slot_pos[s]) for s in range(self.batch)
+                   if self.slot_req[s] is not None)
+        if not self.paged:
+            cap = self.batch * self.context
+            return {"live_tokens": float(live), "capacity_tokens": float(cap),
+                    "occupancy": live / cap if cap else 0.0,
+                    "deferrals": 0.0, "peak_active": float(self.peak_active)}
+        st = self.alloc.stats(live_tokens=live)
+        st["capacity_tokens"] = float(self.alloc.spec.pool_tokens)
+        st["deferrals"] = float(self.deferrals)
+        st["peak_active"] = float(self.peak_active)
+        st["peak_used_pages"] = float(self.peak_used_pages)
+        return st
 
     def stats(self) -> dict[str, float]:
         """Per-drain engine counters: ticks, tokens, batch occupancy,
-        prefill chunks and policy preemptions."""
+        prefill chunks, what the policy did (evictions, COW sharing) and
+        how speculation performed."""
 
         g = self.tokens_generated
         return {
@@ -232,24 +430,105 @@ class Server:
             "mean_active": (self.slot_ticks / self.ticks
                             if self.ticks else 0.0),
             "prefill_chunks": float(self.prefill_chunks),
+            "deferrals": float(self.deferrals),
             "preemptions": float(self.preemptions),
             "peak_active": float(self.peak_active),
+            "peak_used_pages": float(self.peak_used_pages),
+            "share_hits": float(self.share_hits),
+            "shared_tokens": float(self.shared_tokens),
+            "cow_copies": float(self.cow_copies),
+            "spec_ticks": float(self.spec_ticks),
+            "spec_proposed": float(self.spec_proposed),
+            "spec_accepted": float(self.spec_accepted),
+            "accept_rate": (self.spec_accepted / self.spec_proposed
+                            if self.spec_proposed else 0.0),
         }
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         # a per-tick temporary, never written after the step is issued
         return torch.from_numpy(a).to(self.device)
 
+    def _propose_drafts(self) -> dict[int, list[int]]:
+        """Host-side draft proposals for this tick's decoding slots.
+        Depth is capped so emission never overshoots ``max_new`` or the
+        context (cap ``d``: up to ``d+1`` tokens emitted, and the verify
+        chunk covers positions ``pos..pos+d``), so the spec path retires
+        at exactly the baseline stopping point."""
+
+        drafts: dict[int, list[int]] = {}
+        if self.drafter is None:
+            return drafts
+        for s in range(self.batch):
+            req = self.slot_req[s]
+            if req is None or self._phase(s) != "decode":
+                continue
+            pos = int(self.slot_pos[s])
+            cap = min(self.spec_depth,
+                      req.max_new - len(req.out) - 1,
+                      self.context - 2 - pos)
+            if cap < 1:
+                continue
+            d = self.drafter.propose(req.prompt + req.out, cap)[:cap]
+            if d:
+                drafts[s] = [int(t) for t in d]
+        return drafts
+
+    def _back_pages(self, drafts: dict[int, list[int]]) -> None:
+        """Paged mode: back every live slot's positions for this tick, in
+        admission order, and break COW sharing for every position about
+        to be written.  A slot the allocator cannot cover, even after
+        evicting every policy-offered victim, is itself evicted and sits
+        the tick out.  A draft is backed opportunistically: it shrinks to
+        what the free list covers and never evicts a neighbour that a
+        plain decode would not."""
+
+        cow_pairs: list[tuple[int, int]] = []
+        order = sorted((s for s in range(self.batch)
+                        if self.slot_req[s] is not None),
+                       key=lambda s: self._slot_seq[s])
+        for s in order:
+            req = self.slot_req[s]
+            if req is None:          # evicted as an earlier victim
+                continue
+            pos = int(self.slot_pos[s])
+            if self._phase(s) == "decode":
+                end = pos + 1
+                if s in drafts:
+                    dr = drafts.pop(s)
+                    for dd in range(len(dr), 0, -1):
+                        if self.alloc.ensure(s, pos + dd + 1):
+                            drafts[s] = dr[:dd]
+                            end = pos + dd + 1
+                            break
+                if s not in drafts and not self._ensure_pages(s, pos + 1):
+                    continue
+            else:
+                cur = req._cursor  # type: ignore[attr-defined]
+                end = pos + min(self.prefill_chunk,
+                                req._prefill_target - cur)
+                if not self._ensure_pages(s, end):
+                    continue
+            if self.share_prefix and self.slot_req[s] is req:
+                cow_pairs.extend(self._cow_range(s, pos, end))
+        if cow_pairs:
+            self._copy_pages(cow_pairs)
+        self.peak_used_pages = max(self.peak_used_pages,
+                                   self.alloc.used_pages)
+
     def tick(self) -> int:
         """One engine iteration; returns number of active slots.
 
-        Decoding slots advance one token through ``decode_step``;
+        Decoding slots advance one token through ``decode_step``, or,
+        with a draft, verify it and commit the accepted tokens;
         prefilling slots advance up to ``prefill_chunk`` stream tokens
-        through ``prefill_step``: the chunk that consumes a stream's
-        last token also yields the request's next generated token,
-        exactly as the tokenwise tick that fed that token would have."""
+        through ``prefill_step``: the chunk that consumes a stream's last
+        token also yields the request's next generated token, exactly as
+        the tokenwise tick that fed that token would have."""
 
         self._admit()
+        drafts = self._propose_drafts()
+        if self.paged:
+            self._back_pages(drafts)
         active = [s for s in range(self.batch) if self.slot_req[s] is not None]
         self.peak_active = max(self.peak_active, len(active))
         if not active:
@@ -257,7 +536,11 @@ class Server:
         self.ticks += 1
         self.slot_ticks += len(active)
         decode = [s for s in active if self._phase(s) == "decode"]
+        spec = [s for s in decode if s in drafts]
+        decode = [s for s in decode if s not in drafts]
         prefill = [s for s in active if self._phase(s) == "prefill"]
+        extra = ((_snapshot(self.alloc.page_table, self.device),)
+                 if self.paged else ())
 
         if decode:
             tokens = np.zeros((self.batch, 1), np.int32)
@@ -267,7 +550,7 @@ class Server:
                 mask[s] = True
             logits, self.state = self.api.decode_step(
                 self.params, self.state, self._tensor(tokens),
-                _snapshot(self.slot_pos, self.device),
+                _snapshot(self.slot_pos, self.device), *extra,
                 active=self._tensor(mask))
             nxt = logits.argmax(dim=-1).cpu().numpy()
             for s in decode:
@@ -277,6 +560,9 @@ class Server:
                 req.out.append(int(nxt[s]))
                 self.tokens_generated += 1
                 self._retire_if_done(s)
+
+        if spec:
+            self._speculate(spec, drafts, extra)
 
         if prefill:
             T = self.prefill_chunk
@@ -294,7 +580,7 @@ class Server:
             logits, self.state = self.api.prefill_step(
                 self.params, self.state, self._tensor(tokens),
                 _snapshot(self.slot_pos, self.device),
-                self._tensor(lengths))
+                self._tensor(lengths), *extra)
             nxt = logits.argmax(dim=-1).cpu().numpy()
             self.prefill_chunks += len(prefill)
             for s in prefill:
@@ -306,7 +592,67 @@ class Server:
                     req.out.append(int(nxt[s]))
                     self.tokens_generated += 1
                     self._retire_if_done(s)
+
+        # sliding-window reclamation: pages whose positions all fell out
+        # of the window are never attended again; the next tick's
+        # earliest attended position is slot_pos - window + 1
+        if self.paged and self.api.cfg.window is not None:
+            w = self.api.cfg.window
+            for s in range(self.batch):
+                if self.slot_req[s] is not None:
+                    self.alloc.trim(s, max(0, int(self.slot_pos[s]) - w + 1))
         return len(active)
+
+    def _speculate(self, spec: list[int], drafts: dict[int, list[int]],
+                   extra: tuple) -> None:
+        """Verify the chunk [pending token, drafts...] at absolute
+        positions pos..pos+d in one forward, accept the longest prefix of
+        drafts matching the verifier's own greedy picks (plus its bonus
+        token), then COMMIT exactly the accepted tokens with a
+        length-gated ``prefill_step``; ``verify_step`` writes no state."""
+
+        D1 = self.spec_depth + 1
+        tokens = np.zeros((self.batch, D1), np.int32)
+        lengths = np.zeros(self.batch, np.int32)
+        for s in spec:
+            dr = drafts[s]
+            tokens[s, 0] = self.slot_req[s].out[-1]
+            tokens[s, 1:1 + len(dr)] = dr
+            lengths[s] = len(dr) + 1
+        tok, pos = self._tensor(tokens), _snapshot(self.slot_pos, self.device)
+        logits, _ = self.api.verify_step(self.params, self.state, tok, pos,
+                                         self._tensor(lengths), *extra)
+        greedy = logits.argmax(dim=-1).cpu().numpy()        # (B, D1)
+        commit = np.zeros(self.batch, np.int32)
+        emitted: dict[int, list[int]] = {}
+        for s in spec:
+            dr = drafts[s]
+            k = 0
+            while k < len(dr) and int(greedy[s, k]) == dr[k]:
+                k += 1
+            emitted[s] = dr[:k] + [int(greedy[s, k])]
+            commit[s] = k + 1
+            req = self.slot_req[s]
+            req.spec_proposed += len(dr)
+            req.spec_accepted += k
+            self.spec_proposed += len(dr)
+            self.spec_accepted += k
+        _, self.state = self.api.prefill_step(self.params, self.state, tok,
+                                              pos, self._tensor(commit),
+                                              *extra)
+        self.spec_ticks += 1
+        for s in spec:
+            req = self.slot_req[s]
+            e = int(commit[s])
+            req._cursor += e  # type: ignore[attr-defined]
+            self.slot_pos[s] += e
+            req.out.extend(emitted[s])
+            self.tokens_generated += e
+            if self.paged:
+                # hand back pages taken for rejected positions: the table
+                # must match a never-speculated drain
+                self.alloc.rewind(s, int(self.slot_pos[s]))
+            self._retire_if_done(s)
 
     def run_until_drained(self, max_ticks: int = 10_000) -> None:
         for _ in range(max_ticks):

@@ -574,3 +574,88 @@ def test_reduced_forward_on_the_card_equals_the_cpu_port(cuda):
     req = server.submit(toks[0, :20].tolist(), max_new=3)
     server.run_until_drained()
     assert req.done and len(req.out) == 3
+
+
+def _f32_model(cuda):
+    """qwen1.5-4b reduced with a compiled head dim, f32 weights made on
+    the host from seed 0 and moved to the card."""
+
+    cfg = get_config("qwen1.5-4b").reduced().replace(head_dim=64,
+                                                     logits_dtype="float32")
+    api = build_model(cfg)
+    return api, tree_map(lambda t: t.float().to(cuda),
+                         api.init(0, device="cpu"))
+
+
+def _cycled(n, length):
+    return [[(r + i % 4) % 255 + 1 for i in range(length)] for r in range(n)]
+
+
+@pytest.mark.parametrize("share_prefix", [False, True])
+def test_paged_server_on_the_card_matches_contiguous(cuda, share_prefix):
+    """A paged Server whose free list is shuffled from a seed (physical
+    pages out of order), under page pressure, gives the contiguous
+    drain's tokens on the card; with a shared 16-token prefix it maps
+    pages and still does."""
+
+    import numpy as np
+
+    api, params = _f32_model(cuda)
+    prefix = _cycled(1, 16)[0] if share_prefix else []
+    prompts = [prefix + q for q in _cycled(4, 6)]
+
+    def drain(**kw):
+        srv = Server(api, params, batch=3, context=48, prefill_chunk=4, **kw)
+        if srv.paged:
+            rng = np.random.default_rng(7)
+            srv.alloc._free = [int(x) for x in
+                               rng.permutation(srv.alloc.spec.n_pages)]
+        reqs = [srv.submit(prompts[0], max_new=6)]
+        while not reqs[0].out:
+            srv.tick()
+        reqs += [srv.submit(q, max_new=6) for q in prompts[1:]]
+        srv.run_until_drained()
+        assert all(r.done for r in reqs)
+        return [r.out for r in reqs], srv
+
+    want, _ = drain()
+    got, srv = drain(paged=True, page_size=4, kv_pages=24,
+                     share_prefix=share_prefix,
+                     scheduler="prefix" if share_prefix else None)
+    assert srv.state["blocks"]["0_dense"]["kv"]["k"].device == cuda
+    assert got == want
+    assert (srv.stats()["share_hits"] > 0) == share_prefix
+    assert srv.alloc.used_pages == 0
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_self_draft_accepts_every_draft_on_the_card(cuda, paged):
+    """On a model whose greedy steps all have a decisive top-2 gap
+    (>= 1e-3 in f32, checked here against an offline forward), self-draft
+    accepts every draft and gives the non-speculative drain's tokens."""
+
+    api, params = _f32_model(cuda)
+    prompts = _cycled(3, 8)
+    pk = dict(paged=True, page_size=4) if paged else {}
+
+    def drain(**kw):
+        srv = Server(api, params, batch=2, context=32, prefill_chunk=4,
+                     **pk, **kw)
+        reqs = [srv.submit(q, max_new=8) for q in prompts]
+        srv.run_until_drained()
+        return [r.out for r in reqs], srv
+
+    base, _ = drain()
+    for q, out in zip(prompts, base):
+        toks = list(q)
+        for t in out:
+            lg = api.forward(params, {"tokens": torch.tensor([toks],
+                                                             device=cuda)})
+            top = torch.topk(lg[0, -1], 2).values
+            assert float(top[0] - top[1]) >= 1e-3
+            assert int(lg[0, -1].argmax()) == t
+            toks.append(t)
+    outs, srv = drain(speculate="draft", spec_depth=4)
+    assert outs == base
+    st = srv.stats()
+    assert st["spec_proposed"] > 0 and st["accept_rate"] == 1.0

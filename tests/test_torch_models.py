@@ -397,5 +397,14 @@ def test_decode_state_layout_matches_jax():
         assert a.shape == b.shape
     assert st["blocks"]["0_dense"]["kv"]["k"].dtype == torch.bfloat16
     assert api.param_count() == japi.param_count()
-    with pytest.raises(NotImplementedError, match="paged"):
-        api.init_decode_state(2, 16, paged=object(), device="cpu")
+    # the paged layout: one (n_pages, Hkv, page_size, hd) pool a block
+    from repro.runtime.kv import PagedKVSpec as JaxPagedKVSpec
+    from repro_torch.runtime.kv import PagedKVSpec
+    js = _np(japi.init_decode_state(2, 16, JaxPagedKVSpec(5, 4, 4)))
+    st = api.init_decode_state(2, 16, paged=PagedKVSpec(5, 4, 4),
+                               device="cpu")
+    assert jax.tree.structure(js) == jax.tree.structure(params_to_numpy(st))
+    for a, b in zip(jax.tree.leaves(js),
+                    jax.tree.leaves(params_to_numpy(st))):
+        assert a.shape == b.shape == (api.cfg.n_layers, 5,
+                                      api.cfg.n_kv_heads, 4, api.cfg.hd)

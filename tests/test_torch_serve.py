@@ -142,19 +142,21 @@ def test_submit_rejections():
     assert req.done and len(req.prompt) + len(req.out) <= 16
 
 
-@pytest.mark.parametrize("flag", [{"paged": True}, {"share_prefix": True},
-                                  {"speculate": "ngram"},
-                                  {"obs": object()}])
+@pytest.mark.parametrize("flag", [{"obs": object()}])
 def test_unported_options_raise(flag):
     _, (api, p) = _models("smollm-135m")
     with pytest.raises(ValueError, match="not ported yet"):
         Server(api, p, batch=1, context=16, **flag)
 
 
-def test_launch_serve_on_the_cpu(capsys):
+@pytest.mark.parametrize("flags", [
+    [], ["--paged", "--share-prefix", "--speculate", "ngram"]])
+def test_launch_serve_on_the_cpu(capsys, flags):
     serve_main(["--arch", "qwen1.5-4b", "--preset", "smoke", "--requests",
                 "3", "--batch", "2", "--context", "48", "--prompt-len",
                 "10", "--max-new", "3", "--prefill-chunk", "4",
-                "--device", "cpu"])
+                "--device", "cpu"] + flags)
     out = capsys.readouterr().out
     assert "served 3 requests / 9 tokens" in out
+    if flags:
+        assert "paged: peak" in out and "speculate (ngram, depth 4)" in out

@@ -109,6 +109,9 @@ def test_entry_points_without_a_card_raise():
         lambda: api.init(0),
         lambda: api.init_decode_state(2, 16),
         lambda: serve_main(["--arch", "smollm-135m", "--requests", "1"]),
+        lambda: serve_main(["--arch", "smollm-135m", "--requests", "1",
+                            "--paged", "--share-prefix", "--speculate",
+                            "draft"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
