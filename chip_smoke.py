@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's main paths on one CUDA card, end to end: the tuning
-loop, the dense model path and the paged serving path (qwen1.5-4b at
-full width).
+loop, the dense model path, the paged serving path (qwen1.5-4b at full
+width) and the model checker.
 
     python3 chip_smoke.py
 
@@ -42,7 +42,21 @@ Each phase prints one JSON line:
    (d) self-draft speculation on the 4-layer f32 cut, paged, each tick's
    page tables checked, against its never-speculated drain; then each
    kernel's launches during that path; and (c) paged with a shuffled free
-   list, and shared, against the contiguous drain on the f32 cut.
+   list, and shared, against the contiguous drain on the f32 cut;
+8. ``model_check`` — the paper's model checker on the port: (a) the §7
+   Minimum model (NP = GMT = 4) at sizes 8-64 under the ``explorer``,
+   ``bnb`` and ``swarm`` engines, each t_min equal to the ``sweep``
+   engine's and each witness's trail replayed on the model, and the
+   ``sweep_eval`` kernel over the spec's whole lattice on the card: its
+   minimum equal to t_min, its value at every witness equal to the
+   witness's time; (b) Table 1's abstract rows (``explorer`` at 8 and 16,
+   an 8-walk ``swarm`` at 32) against ``sweep``, the paper's value beside
+   each; (c) an ``explorer`` witness through the tuning cache and back;
+   (d) ``repro_torch.verify``: the allocator model at ``AllocConfig()``
+   (canonical), the server and speculation models, the six mutants; (e)
+   phase 7(b)'s full-width shared-prefix drain's allocator trace accepted
+   as a path of the allocator model; then the kernel's time on each small
+   lattice, the phase's seconds and each kernel's launches during it.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -122,6 +136,38 @@ PAGED = dict(SERVE, paged=True, page_size=16, kv_pages=112)
 PAGED_REQUESTS = 8
 SHARED_PREFIX = 256
 SPEC_DEPTH = 4
+# phase 8, the model checker: the section 7 Minimum model (NP = GMT = 4)
+# under each engine, every model-checked answer held to the sweep_eval
+# kernel on the card; Table 1's abstract rows as
+# benchmarks/bench_table1.py runs them (size 64's swarm takes minutes a
+# walk in Python and is left out); then verify at the reference's sizes
+MC_MINIMUM = {8: ("explorer", "bnb", "swarm"), 16: ("explorer", "bnb", "swarm"),
+              32: ("explorer", "bnb", "swarm"), 64: ("bnb", "swarm")}
+MC_ABSTRACT = ((8, "explorer"), (16, "explorer"), (32, "swarm"))
+MC_SWARM = {"n_walks": 8, "seed": 1, "keep_trails": True}
+MC_ABSTRACT_SWARM = dict(MC_SWARM, depth_limit=2_000_000)
+# size -> (model_time, TS, WG), the paper's Table 1 (bench_table1.py)
+PAPER_T1 = {8: (44, 4, 4), 16: (156, 4, 8), 32: (584, 4, 16),
+            64: (2224, 8, 32), 128: (9344, 64, 64), 256: (36234, 4, 4),
+            512: (142090, 4, 4), 1024: (549912, 32, 16)}
+# the server models of tests/test_verify_models.py: (config, scenario)
+MC_SERVERS = {
+    "fcfs": (dict(policy="fcfs", batch=3),
+             dict(name="t", prompts=((3, 3, 3), (4, 4, 4, 4), (5, 5)),
+                  max_new=(2, 1, 1))),
+    "fcfs-share": (dict(policy="fcfs", batch=3, share_prefix=True),
+                   dict(name="share",
+                        prompts=((7, 7, 7, 7), (7, 7, 7, 5), (7, 7)),
+                        max_new=(2, 1, 1))),
+    "priority": (dict(policy="priority", batch=2, aging_slack=3),
+                 dict(name="slo", prompts=((3, 3, 3), (4, 4), (5, 5, 5)),
+                      max_new=(2, 1, 1),
+                      slo=("batch", "interactive", "interactive"))),
+    "prefix": (dict(policy="prefix", batch=3, share_prefix=True),
+               dict(name="pf", prompts=((7, 7, 7, 7), (7, 7, 7, 5), (9, 9)),
+                    max_new=(2, 1, 1))),
+}
+MC_SMALL_ALLOC = dict(n_slots=2, page_size=2, pages_per_slot=2, n_pages=3)
 
 
 def emit(phase: str, **fields) -> None:
@@ -183,8 +229,9 @@ def model_path(dev, gen, counters, flash_ms: float) -> dict:
     shape (the same modeled tile ``@autotune`` picks here), for the flash
     kernel's share of a forward.  Then phase 7 (:func:`paged_path`) on the
     same weights and cache.  Returns the launches of each kernel during
-    phase 6's main path, (a'') and (b), and during phase 7's; the
-    comparisons' launches, before and after them, are not counted."""
+    phase 6's main path, (a'') and (b), and during phase 7's (the
+    comparisons' launches, before and after them, are not counted), and
+    phase 7(b)'s allocator trace."""
 
     import numpy as np
     import torch
@@ -385,11 +432,13 @@ def model_path(dev, gen, counters, flash_ms: float) -> dict:
             torch.cuda.empty_cache()
 
             # 7. the paged path, under the same tuning cache
-            paged = paged_path(dev, counters, api, params, api_cut, p_cut, d)
+            paged, shared_trace = paged_path(dev, counters, api, params,
+                                             api_cut, p_cut, d)
         finally:
             set_default_cache(prev)
     torch.cuda.synchronize()
-    return {"launches": launches, "paged_launches": paged}
+    return {"launches": launches, "paged_launches": paged,
+            "shared_trace": shared_trace}
 
 
 def top2(logits):
@@ -590,7 +639,7 @@ def drafts_against_target(api_cut, p_cut, calls, seqs, d, dev) -> dict:
     return {"drafts": len(calls), "rejected_at_near_tie": mismatches}
 
 
-def paged_path(dev, counters, api, params, api_cut, p_cut, d) -> list[int]:
+def paged_path(dev, counters, api, params, api_cut, p_cut, d) -> tuple:
     """Phase 7: the paged Server at qwen1.5-4b's full width.  (profile) one
     decode tick, contiguous and paged, under ``torch.profiler``; (a)
     paged, 8 requests of 512 + 16 in two waves through 112 pages; (b) the
@@ -604,7 +653,8 @@ def paged_path(dev, counters, api, params, api_cut, p_cut, d) -> list[int]:
     contiguous drain, on the f32 cut; (d)'s tokens against the
     never-speculated drain's, and each of its drafts against the target's
     tokens; (d')'s tokens against its never-speculated drain's, counted
-    (bf16 at full depth: not asserted)."""
+    (bf16 at full depth: not asserted).  Returns the launches and (b)'s
+    allocator trace with its spec."""
 
     import numpy as np
     import torch
@@ -653,10 +703,14 @@ def paged_path(dev, counters, api, params, api_cut, p_cut, d) -> list[int]:
     out_a = [r.out for r in run_a["reqs"]]
     del server
 
-    # (b) share_prefix: the last four map the first four's 16 pages
+    # (b) share_prefix: the last four map the first four's 16 pages; the
+    # allocator records every call, for phase 8(e)
     server = Server(api, params, **PAGED, share_prefix=True,
                     scheduler="prefix")
+    server.alloc.trace = []
     run_b = two_waves(server, prompts, MAX_NEW)
+    shared_trace = {"trace": list(server.alloc.trace),
+                    "spec": server.alloc.spec, "n_slots": server.batch}
     equal = sum(x == y for o_a, o_b in zip(out_a, (r.out for r in
                                                     run_b["reqs"]))
                 for x, y in zip(o_a, o_b))
@@ -778,7 +832,200 @@ def paged_path(dev, counters, api, params, api_cut, p_cut, d) -> list[int]:
         raise AssertionError("self-draft never verified a draft")
     del base_srv, spec_srv
     torch.cuda.empty_cache()
-    return launches
+    return launches, shared_trace
+
+
+def model_check(dev, counters, shared_trace) -> dict:
+    """Phase 8: the paper's model checker, with the sweep_eval kernel on
+    the card holding its answers.  (a) the Minimum model at each size and
+    engine: t_min equal to the ``sweep`` engine's, the witness's trail
+    replayed on the model, and the kernel over the spec's whole (WG, TS)
+    lattice: its minimum equal to t_min, its value at the witness equal
+    to the witness's time, and equal to its plain version point for
+    point; (b) Table 1's abstract rows against ``sweep`` (the kernel
+    implements the Minimum model only), the paper's value beside each;
+    (c) a witness through the tuning cache and back; (d) ``verify``: the
+    allocator model at ``AllocConfig()``, the server and speculation
+    models, the six mutants with their trails replayed on the real
+    allocator; (e) phase 7(b)'s allocator trace as a model path.  Returns
+    each kernel's launches during (a)-(e) and the kernel's time on each
+    Minimum lattice, measured after the launches are read."""
+
+    import torch
+    from repro_torch.core import PlatformSpec, build_model
+    from repro_torch.kernels.common import ISSUE_RATE
+    from repro_torch.kernels.sweep_eval.ops import (point_ops, sweep_eval,
+                                                    sweep_ref)
+    from repro_torch.runtime.kv import PagedKVAllocator
+    from repro_torch.verify import (
+        MUTANTS, AllocConfig, AllocatorSemantics, ConformanceError,
+        ServerConfig, ServerScenario, ServerSemantics, SpecConfig,
+        SpecSemantics, allocator_invariants, build_driver_model,
+        coupled_explore, replay_ops, server_invariants, spec_invariants,
+        trace_accepted, violates_any)
+    from repro_torch.core.explorer import explore
+    from repro_torch.tune import PlatformTunable, TuningCache, tune
+
+    t_phase = time.perf_counter()
+    for c in counters:
+        c.launches = 0
+    lattices = {}
+
+    def engine_row(spec, engine, kw):
+        tunable = PlatformTunable(spec)
+        sweep = tune(tunable, engine="sweep", cache=None)
+        t0 = time.perf_counter()
+        res = tune(tunable, engine=engine, cache=None, **kw)
+        wall = time.perf_counter() - t0
+        valid = res.witness.validate(build_model(spec))
+        if res.t_min != sweep.t_min or not valid:
+            raise AssertionError(f"{spec.kind} size {spec.size} {engine}: "
+                                 f"t_min {res.t_min} (sweep {sweep.t_min}), "
+                                 f"witness replays: {valid}")
+        return res, sweep, wall, {
+            "kind": spec.kind, "size": spec.size, "engine": res.engine,
+            "t_min": res.t_min, "sweep_t_min": sweep.t_min,
+            "best_config": res.best_config,
+            "sweep_best_config": sweep.best_config,
+            "states": res.stats.get("states"),
+            "terminals": res.stats.get("terminals"),
+            "walks": res.stats.get("walks"), "wall_s": wall,
+            "witness_depth": res.witness.depth, "witness_replays": valid}
+
+    # (a) the Minimum model, each model-checked answer on the card
+    for size, engines in MC_MINIMUM.items():
+        spec = PlatformSpec(size, NP=4, GMT=4, kind="minimum")
+        wave = PlatformTunable(spec).wave
+        choices = spec.config_choices()
+        wg = torch.tensor([w for w, _ in choices], dtype=torch.int32,
+                          device=dev)
+        ts = torch.tensor([t for _, t in choices], dtype=torch.int32,
+                          device=dev)
+        times = sweep_eval(wg, ts, wave, threads=64, ept=1)
+        plain = sweep_ref(wave, wg.cpu(), ts.cpu())
+        if not torch.equal(times.cpu(), plain):
+            raise AssertionError(f"minimum size {size}: the kernel differs "
+                                 f"from its plain version")
+        on_card = dict(zip(choices, times.cpu().tolist()))
+        lattices[size] = (wg, ts, wave)
+        for engine in engines:
+            kw = MC_SWARM if engine == "swarm" else {}
+            res, _, _, row = engine_row(spec, engine, kw)
+            w = res.witness
+            at_witness = on_card[(w.config["WG"], w.config["TS"])]
+            if min(on_card.values()) != res.t_min or at_witness != w.time:
+                raise AssertionError(
+                    f"minimum size {size} {engine}: kernel minimum "
+                    f"{min(on_card.values())}, at the witness {at_witness}; "
+                    f"model checker {res.t_min}, witness {w.time}")
+            emit("model_check", part="minimum", lattice_points=len(choices),
+                 kernel_min=min(on_card.values()),
+                 kernel_at_witness=at_witness, **row)
+
+    # (b) Table 1's abstract rows, held to the host sweep
+    for size, engine in MC_ABSTRACT:
+        spec = PlatformSpec(size, NP=4, GMT=4, kind="abstract")
+        kw = MC_ABSTRACT_SWARM if engine == "swarm" else {}
+        _, _, _, row = engine_row(spec, engine, kw)
+        paper = PAPER_T1[size]
+        emit("model_check", part="table1_abstract",
+             paper={"t": paper[0], "TS": paper[1], "WG": paper[2]}, **row)
+
+    # (c) a model-checked witness through the cache and back
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = PlatformSpec(16, NP=4, GMT=4, kind="minimum")
+        path = Path(tmp) / "tune_cache.json"
+        cache = TuningCache(path)
+        first = tune(PlatformTunable(spec), engine="explorer", cache=cache)
+        cache.save()
+        again = tune(PlatformTunable(spec), engine="explorer",
+                     cache=TuningCache(path))
+        valid = again.witness.validate(build_model(spec))
+        if first.stats["cache"] != "miss" or \
+                again.stats["cache"] != "hit" or not valid or \
+                again.witness.trail != first.witness.trail:
+            raise AssertionError(f"cache round trip: {first.stats['cache']}, "
+                                 f"{again.stats['cache']}, replays {valid}")
+        emit("model_check", part="cache", first=first.stats["cache"],
+             second=again.stats["cache"], t_min=again.t_min,
+             witness_depth=again.witness.depth, witness_replays=valid)
+
+    # (d) verify at the reference's sizes
+    t0 = time.perf_counter()
+    res = explore(build_driver_model(AllocatorSemantics(AllocConfig(),
+                                                        canonical=True)),
+                  violates_any(allocator_invariants()), schedule="por")
+    emit("model_check", part="verify_allocator", config="AllocConfig()",
+         canonical=True, status=res.status, states=res.states,
+         transitions=res.transitions, wall_s=time.perf_counter() - t0)
+    if res.status != "verified":
+        raise AssertionError(f"allocator model: {res.status}")
+    for name, (cfg_kw, scen_kw) in MC_SERVERS.items():
+        cfg = ServerConfig(**cfg_kw)
+        t0 = time.perf_counter()
+        res = explore(build_driver_model(ServerSemantics(
+            cfg, ServerScenario(**scen_kw))), violates_any(
+                server_invariants(cfg)), schedule="por")
+        emit("model_check", part="verify_server", case=name,
+             status=res.status, states=res.states,
+             wall_s=time.perf_counter() - t0)
+        if res.status != "verified":
+            raise AssertionError(f"server model {name}: {res.status}")
+    cfg = SpecConfig()
+    t0 = time.perf_counter()
+    res = explore(build_driver_model(SpecSemantics(cfg)),
+                  violates_any(spec_invariants(cfg)), schedule="por")
+    emit("model_check", part="verify_spec", status=res.status,
+         states=res.states, wall_s=time.perf_counter() - t0)
+    if res.status != "verified":
+        raise AssertionError(f"speculation model: {res.status}")
+    sem = AllocatorSemantics(AllocConfig(**MC_SMALL_ALLOC), canonical=True)
+    for name, cls in sorted(MUTANTS.items()):
+        res = coupled_explore(sem, cls)
+        if res.ok or not res.ops:
+            raise AssertionError(f"mutant {name} not caught")
+        try:
+            replay_ops(sem, list(res.ops), cls)
+        except ConformanceError:
+            pass
+        else:
+            raise AssertionError(f"mutant {name}: its trail replays clean")
+        replay_ops(sem, list(res.ops), PagedKVAllocator)
+        emit("model_check", part="verify_mutant", mutant=name, caught=True,
+             trail_ops=len(res.ops), states=res.states)
+
+    # (e) phase 7(b)'s full-width shared-prefix drain as a model path
+    spec = shared_trace["spec"]
+    trace = shared_trace["trace"]
+    t0 = time.perf_counter()
+    trace_accepted(AllocatorSemantics(AllocConfig(
+        n_slots=shared_trace["n_slots"], page_size=spec.page_size,
+        pages_per_slot=spec.pages_per_slot, n_pages=spec.n_pages),
+        canonical=False), trace)
+    ops = sorted({m for m, _, _ in trace})
+    emit("model_check", part="drain_trace_accepted", records=len(trace),
+         ops=ops, n_pages=spec.n_pages, page_size=spec.page_size,
+         wall_s=time.perf_counter() - t0)
+    if "share" not in ops or "cow_pages" not in ops:
+        raise AssertionError(f"the shared drain's trace holds {ops}")
+    launches = [c.launches for c in counters]
+    phase_s = time.perf_counter() - t_phase
+
+    # the kernel on each Minimum lattice, timed after the launches are read
+    kernel_ms = {}
+    for size, (wg, ts, wave) in lattices.items():
+        n = wg.numel()
+        b, by = bound_ms(3 * 4 * n, point_ops(wave) * n, ISSUE_RATE)
+        kernel_ms[size] = {
+            "points": n,
+            "ms": time_ms(lambda: sweep_eval(wg, ts, wave, threads=64,
+                                             ept=1), 100),
+            "plain_ms": time_ms(lambda: sweep_ref(wave, wg, ts), 20),
+            "bound_ms": b, "bound_by": by}
+    emit("model_check", part="sweep_eval_small", times=kernel_ms,
+         launch=[64, 1])
+    emit("model_check", part="total", seconds=phase_s)
+    return {"launches": launches, "kernel_ms": kernel_ms}
 
 
 def main() -> int:
@@ -1155,9 +1402,16 @@ def main() -> int:
     if model["paged_launches"][names.index("flash_attention")] <= 0:
         raise AssertionError("flash attention never launched on the paged "
                              "path")
-    for kernel, n, m in zip(names, model["launches"],
-                            model["paged_launches"]):
-        launches[kernel] += n + m
+    # 8. the model checker, held to the sweep_eval kernel on the card ------
+    checked = model_check(dev, counters, model["shared_trace"])
+    emit("kernels", phase_of="model_check", launches=dict(zip(
+        names, checked["launches"])))
+    if checked["launches"][names.index("sweep_eval")] <= 0:
+        raise AssertionError("sweep_eval never launched on the model "
+                             "checker's path")
+    for kernel, n, m, k in zip(names, model["launches"],
+                               model["paged_launches"], checked["launches"]):
+        launches[kernel] += n + m + k
 
     sources = {"tuned_reduction": ("src/repro_torch/csrc/tuned_reduction.cu",
                                    "src/repro/kernels/tuned_reduction/kernel.py:76"),

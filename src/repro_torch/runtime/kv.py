@@ -56,9 +56,8 @@ NO_PAGE = -1
 
 def _traced(fn):
     """Record ``(method, args, ret)`` on ``self.trace`` when tracing is
-    on — the narrow op-trace hook the reference's ``verify.conformance``
-    replays against the abstract allocator model (ROADMAP queue 1, items
-    23 and 20).  List returns are
+    on — the narrow op-trace hook :mod:`repro_torch.verify.conformance`
+    replays against the abstract allocator model.  List returns are
     frozen to tuples so traces are hashable/JSON-friendly."""
 
     name = fn.__name__
@@ -177,7 +176,7 @@ class PagedKVAllocator:
     def project(self) -> tuple:
         """Canonical hashable projection of the allocator's mutable
         state — the shared vocabulary between this class and the
-        abstract model of the reference's ``verify.models`` (state agreement
+        abstract model in :mod:`repro_torch.verify.models` (state agreement
         along a replayed trail is projection equality)."""
 
         return (

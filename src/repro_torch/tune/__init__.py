@@ -5,7 +5,7 @@
   ``measure(cfg)``),
 * :func:`tune` — the front door: ``tune(tunable, engine="sweep")``,
 * :func:`register_engine` / :func:`get_engine` — the engine registry
-  (``sweep``/``grid``/``bisect``/``measure``),
+  (``sweep``/``explorer``/``swarm``/``bnb``/``grid``/``bisect``/``measure``),
 * :class:`TuningCache` — persistent store keyed by tunable fingerprint +
   platform (the card's name and capability) + engine,
 * :func:`autotune` — decorator resolving a kernel's launch parameters

@@ -45,17 +45,18 @@ def tune(tunable, engine: str = "auto", *, cache="default",
     ----------
     tunable: an object implementing the :class:`~repro_torch.tune.Tunable`
         protocol (``name``/``space``/``cost``/``fingerprint``).
-    engine: registry name (``sweep``/``grid``/``bisect``/``measure``/
-        ...); ``auto`` picks ``sweep``
+    engine: registry name (``sweep``/``explorer``/``swarm``/``bnb``/
+        ``grid``/``bisect``/``measure``/...); ``auto`` picks ``sweep``
         for platform tunables and ``grid`` otherwise.
     cache: ``"default"`` (process-wide persistent cache), a
         :class:`TuningCache`, or ``None`` to disable caching.
-    budget: engine-specific work bound (configs / shortlist size).
+    budget: engine-specific work bound (configs / shortlist size /
+        states / walks).
     force: re-run the engine even on a cache hit (the result overwrites
         the cached entry; such a re-tune reports ``stats["cache"] ==
         "force"``, a cold forced run plain ``"miss"``).
-    engine_kw: forwarded to ``Engine.run`` (e.g. ``use_bisection=True``,
-        ``top_k=4``, ``repeats=3``).
+    engine_kw: forwarded to ``Engine.run`` (e.g. ``schedule="por"``,
+        ``use_bisection=True``, ``n_walks=8``, ``top_k=4``).
     """
 
     eng = get_engine(_resolve_engine_name(tunable, engine))

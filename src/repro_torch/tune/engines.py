@@ -11,6 +11,9 @@ a name with :func:`register_engine` and :func:`get_engine` resolves them.
 ``bisect``  Fig. 1 bisection with a cost-table C_ex oracle (any tunable)
 ``measure`` cost-model shortlist, measured verdict (tunables with measure)
 ``sweep``   vectorized lattice sweep over the wave model (platform tunables)
+``explorer`` explicit-state DFS, SPIN-faithful (platform tunables)
+``swarm``   Fig. 5 randomized bounded search (platform tunables)
+``bnb``     Ruys-style branch-and-bound, one verification run (platform)
 ========== ==================================================================
 """
 
@@ -20,7 +23,7 @@ import inspect
 import math
 from typing import Any, Type
 
-from ..core import bisect_search, sweep
+from ..core import bisect_search, explorer, platform, properties, swarm, sweep
 from ..core.autotuner import TuneResult
 from ..core.counterexample import Counterexample
 from ..core.wave_model import model_time
@@ -35,8 +38,8 @@ class Engine:
     """Common interface: ``run(tunable, budget=None, **kw) -> TuneResult``.
 
     ``budget`` bounds the engine's work in engine-specific units
-    (configurations evaluated, shortlist size); ``None`` means the
-    engine's own default.
+    (configurations evaluated, shortlist size, states explored, walks);
+    ``None`` means the engine's own default.
     """
 
     name: str = ""
@@ -85,6 +88,35 @@ def _require_platform(tunable, engine: str):
             f"PlatformSpec `spec` attribute, e.g. repro_torch.tune."
             f"PlatformTunable); got {type(tunable).__name__}")
     return spec
+
+
+def _config_vars(tunable) -> tuple[str, ...]:
+    return tuple(getattr(tunable, "config_vars", ("WG", "TS")))
+
+
+def _explorer_oracle(model, config_vars, *, schedule="por",
+                     max_states=2_000_000):
+    def oracle(T: int) -> Counterexample | None:
+        prop = properties.OverTime(T)
+        r = explorer.explore(model, prop.violates, schedule=schedule,
+                             max_states=max_states)
+        if r.counterexample is None:
+            return None
+        return Counterexample.from_terminal(r.counterexample, config_vars)
+    return oracle
+
+
+def _simulate_t_ini(model) -> int:
+    """The paper obtains T_ini from a SPIN simulation run: one random
+    walk to FIN reads off a feasible termination time."""
+
+    for seed in range(16):
+        r = explorer.explore(model, properties.NonTermination().violates,
+                             schedule="random", seed=seed,
+                             depth_limit=2_000_000)
+        if r.counterexample is not None:
+            return int(r.counterexample.globals["time"])
+    raise RuntimeError("simulation never reached FIN")
 
 
 def _eval_fn(tunable, use_measure: bool):
@@ -240,7 +272,7 @@ class MeasureEngine(Engine):
 
 
 # ---------------------------------------------------------------------------
-# platform engine
+# platform engines (the paper's search backends)
 # ---------------------------------------------------------------------------
 
 
@@ -269,6 +301,102 @@ class SweepEngine(Engine):
                           stats={"evaluated": r.evaluated})
 
 
+@register_engine("explorer")
+class ExplorerEngine(Engine):
+    """Explicit-state search (SPIN-faithful).  ``mode="collect"`` is the
+    paper's §6 optimization: one exploration with Φ_t collects *all*
+    terminating executions, and the bisection answers from the table;
+    ``mode="bisect"`` re-explores per bisection query."""
+
+    def run(self, tunable, *, budget: int | None = None,
+            schedule: str = "por", mode: str = "collect",
+            max_states: int = 2_000_000) -> TuneResult:
+        spec = _require_platform(tunable, self.name)
+        config_vars = _config_vars(tunable)
+        if budget is not None:
+            max_states = budget
+        model = platform.build_model(spec)
+        if mode == "collect":
+            r = explorer.explore(model, properties.NonTermination().violates,
+                                 schedule=schedule, max_states=max_states,
+                                 stop_on_first=False, collect_terminals=True)
+            if not r.terminals:
+                raise RuntimeError("no terminating executions found")
+            table = [Counterexample.from_terminal(t, config_vars)
+                     for t in r.terminals]
+
+            def oracle(T: int) -> Counterexample | None:
+                ok = [c for c in table if c.time <= T]
+                return min(ok, key=lambda c: c.time) if ok else None
+
+            t_ini = max(c.time for c in table)
+            br = bisect_search.find_minimal_time(oracle, t_ini=t_ini)
+            return TuneResult(best_config=br.witness.config, t_min=br.t_min,
+                              engine=f"explorer/{schedule}+collect",
+                              oracle_calls=br.oracle_calls,
+                              witness=br.witness, log=br.log,
+                              stats={"states": r.states,
+                                     "terminals": len(table)})
+        oracle = _explorer_oracle(model, config_vars, schedule=schedule,
+                                  max_states=max_states)
+        t_ini = _simulate_t_ini(model)
+        br = bisect_search.find_minimal_time(oracle, t_ini=t_ini)
+        return TuneResult(best_config=br.witness.config, t_min=br.t_min,
+                          engine=f"explorer/{schedule}",
+                          oracle_calls=br.oracle_calls, witness=br.witness,
+                          log=br.log)
+
+
+@register_engine("swarm")
+class SwarmEngine(Engine):
+    """Fig. 5 randomized bounded search (budget = number of walks).
+    ``keep_trails=True`` keeps the witness's trail, so that it can be
+    replayed (``Counterexample.validate``); the reference's engine
+    drops it, and so does this one by default."""
+
+    def run(self, tunable, *, budget: int | None = None, n_walks: int = 16,
+            depth_limit: int = 500_000, seed: int = 0, n_workers: int = 1,
+            keep_trails: bool = False) -> TuneResult:
+        spec = _require_platform(tunable, self.name)
+        if budget is not None:
+            n_walks = budget
+        model = platform.build_model(spec)
+        sr = swarm.swarm_search(model, n_walks=n_walks,
+                                depth_limit=depth_limit, seed=seed,
+                                n_workers=n_workers, keep_trails=keep_trails,
+                                config_vars=_config_vars(tunable))
+        return TuneResult(best_config=sr.best.config, t_min=sr.t_min,
+                          engine=self.name, oracle_calls=sr.stats.rounds,
+                          witness=sr.best,
+                          stats={"walks": sr.stats.walks,
+                                 "counterexamples": sr.stats.counterexamples})
+
+
+@register_engine("bnb")
+class BranchAndBoundEngine(Engine):
+    """Ruys-style branch-and-bound (paper §8 future work [11]): the
+    minimal time from ONE verification run — no bisection."""
+
+    def run(self, tunable, *, budget: int | None = None,
+            schedule: str = "por", max_states: int = 5_000_000
+            ) -> TuneResult:
+        spec = _require_platform(tunable, self.name)
+        if budget is not None:
+            max_states = budget
+        model = platform.build_model(spec)
+        r = explorer.explore(model, lambda G: False, schedule=schedule,
+                             branch_and_bound="time", stop_on_first=False,
+                             max_states=max_states)
+        if r.counterexample is None:
+            raise RuntimeError("no terminating execution found")
+        cex = Counterexample.from_terminal(r.counterexample,
+                                           _config_vars(tunable))
+        return TuneResult(best_config=cex.config, t_min=cex.time,
+                          engine=f"bnb/{schedule}", oracle_calls=1,
+                          witness=cex, stats={"states": r.states})
+
+
 __all__ = ["Engine", "EngineError", "register_engine", "get_engine",
            "available_engines", "GridEngine", "BisectEngine", "MeasureEngine",
-           "SweepEngine"]
+           "SweepEngine", "ExplorerEngine", "SwarmEngine",
+           "BranchAndBoundEngine"]

@@ -55,10 +55,11 @@ def test_sweep_with_bisection_speaks_the_papers_protocol():
 
 
 def test_engine_registry():
-    assert set(available_engines()) == {"bisect", "function", "grid",
-                                        "measure", "sweep"}
+    assert set(available_engines()) == {"bisect", "bnb", "explorer",
+                                        "function", "grid", "measure",
+                                        "swarm", "sweep"}
     with pytest.raises(ValueError, match="unknown engine"):
-        tune(ReductionTunable(64), engine="swarm", cache=None)
+        tune(ReductionTunable(64), engine="spin", cache=None)
 
 
 def test_measure_engine_runs_on_cpu_tensors_and_records_provenance():
