@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's main paths on one CUDA card, end to end: the tuning
 loop, the dense model path, the paged serving path (qwen1.5-4b at full
-width) and the model checker.
+width), the model checker and the serving tunables.
 
     python3 chip_smoke.py
 
@@ -56,7 +56,23 @@ Each phase prints one JSON line:
    (canonical), the server and speculation models, the six mutants; (e)
    phase 7(b)'s full-width shared-prefix drain's allocator trace accepted
    as a path of the allocator model; then the kernel's time on each small
-   lattice, the phase's seconds and each kernel's launches during it.
+   lattice, the phase's seconds and each kernel's launches during it;
+9. ``serve_tune`` — the serving tunables at qwen1.5-4b's full width on
+   phase 6's weights, under the H100 data-sheet platform spec: (a) the
+   five ``serve.*`` tunables built through their factories, each grid
+   pick and every lattice point's modeled cost, held to a re-derivation
+   here; (b) the slot count under the measure engine, modeled against
+   measured drains, and ``choose_batch`` again from the cache; (b') the
+   prefill chunk and the page size at their two best modeled points;
+   (c) the scheduling policy over one seeded bursty trace through the
+   paged Server, every (policy, age limit) drained, with goodput,
+   latency and SLO attainment; (d) ``python -m repro_torch.launch.serve``
+   with ``--tune-batch --tune-prefill --tune-page`` in-process; (e)
+   speculation's depths on the f32 cut with the n-gram drafter; then
+   each kernel's launches during the phase (none: the Server attends
+   with plain ops), and the checks: the policies' tokens at bf16 (equal
+   but where an evicted request re-prefilled, and there only at a near
+   tie) and on the f32 cut (equal).
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -168,6 +184,27 @@ MC_SERVERS = {
                     max_new=(2, 1, 1))),
 }
 MC_SMALL_ALLOC = dict(n_slots=2, page_size=2, pages_per_slot=2, n_pages=3)
+# phase 9, the serving tunables at full width: the expected load the
+# factories are sized for (a), measured for the slot count (b) and the
+# driver (d); the scheduler's bursty trace through phase 7's paged Server
+# (c); speculation's depths on the f32 cut with the n-gram drafter (e)
+TUNE_LOAD = dict(context=1024, requests=8, max_new=16)
+TUNE_PROMPT, TUNE_SLOTS = 512, 4
+SCHED = dict(context=1024, batch=4, page_size=16, kv_pages=112,
+             prefill_chunk=256, requests=12, burst=4, burst_every=10,
+             prompt_len=(128, 512), max_new=(8, 16), interactive_frac=0.5,
+             shared_frac=0.5, prefix_len=256, seed=0,
+             policies=("fcfs", "prefix", "priority"), age_limits=(4, 32))
+# the measure engine's settings: the slot count's four best modeled
+# points, one timed drain each (after one warmup drain), to keep the
+# host-bound phase near 2 minutes; every scheduling point once; the
+# chunk's and the page's two best points once
+SLOT_ENGINE = {"top_k": 4, "repeats": 1}
+SCHED_ENGINE = {"top_k": 6, "repeats": 1}
+PAIR_ENGINE = {"top_k": 2, "repeats": 1}
+SPEC_LOAD = dict(context=1024, prompt_len=128, requests=4, max_new=16,
+                 batch=4, drafters=("ngram",))
+MODEL_REL = 1e-9    # a modeled cost against its plain re-derivation
 
 
 def emit(phase: str, **fields) -> None:
@@ -438,7 +475,8 @@ def model_path(dev, gen, counters, flash_ms: float) -> dict:
             set_default_cache(prev)
     torch.cuda.synchronize()
     return {"launches": launches, "paged_launches": paged,
-            "shared_trace": shared_trace}
+            "shared_trace": shared_trace, "api": api, "params": params,
+            "plain_api": plain_api, "api_cut": api_cut, "p_cut": p_cut}
 
 
 def top2(logits):
@@ -1028,6 +1066,411 @@ def model_check(dev, counters, shared_trace) -> dict:
     return {"launches": launches, "kernel_ms": kernel_ms}
 
 
+class Recording:
+    """A tunable passed through to an engine, keeping each measured
+    point's last drain counters (the tunable keeps only the last call's).
+    Its fingerprint is the tunable's, so its cache entries are the ones
+    ``choose_batch``/``choose_scheduler`` read."""
+
+    def __init__(self, inner):
+        self.inner, self.name, self.points = inner, inner.name, {}
+
+    def space(self):
+        return self.inner.space()
+
+    def cost(self, cfg):
+        return self.inner.cost(cfg)
+
+    def fingerprint(self):
+        return self.inner.fingerprint()
+
+    def measure(self, cfg, *, warmup=1, iters=1):
+        us = self.inner.measure(cfg, warmup=warmup, iters=iters)
+        self.points[json.dumps(dict(cfg), sort_keys=True)] = \
+            self.inner.last_stats
+        return us
+
+    def stats(self, cfg) -> dict:
+        return self.points[json.dumps(dict(cfg), sort_keys=True)]
+
+
+def rederived_us(name, tb, cfg, spec) -> float:
+    """A serving tunable's modeled drain written out again from
+    ``kv_cache_stream_s`` and the platform constants (the reference's
+    models: bf16 weights, 2 bytes a parameter; the scheduler's priced on
+    its architecture's reduced config, with 50 us a tick)."""
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.tunables import kv_cache_stream_s as kv
+    from repro_torch.runtime.workload import TraceConfig
+
+    def ceil(a, b):
+        return -(-a // b)
+
+    bw, peak = spec.hbm_bw, spec.peak_flops
+    if name == "serve.scheduler":
+        acfg = get_config(tb.arch).reduced()
+        L, dm = acfg.n_layers, acfg.d_model
+        weights = 2 * (acfg.vocab * dm + L * 12 * dm * dm) / bw
+        prefix = cfg["policy"] == "prefix"
+        mp = sum(tb.prompt_len) / 2 + tb.shared_frac * tb.prefix_len
+        mn = sum(tb.max_new) / 2
+        pre = ceil(mp, tb.prefill_chunk)
+        if prefix:
+            pre *= max(0.1, 1 - tb.shared_frac * tb.prefix_len / mp)
+        service = pre + mn
+        pool = (tb.kv_pages * tb.page_size if tb.kv_pages
+                else tb.batch * tb.context)
+        foot = ceil(mp + mn, tb.page_size) * tb.page_size
+        if prefix:
+            foot -= tb.shared_frac * tb.prefix_len
+        conc = max(1.0, min(tb.batch, pool / max(1.0, foot)))
+        burst = (tb.burst if tb.arrival == "bursty"
+                 else max(1.0, tb.rate * service))
+        wait = burst / 2 / conc * service
+        if cfg["policy"] == "priority":
+            wait = burst * tb.interactive_frac / 2 / conc * service
+        dl = TraceConfig().deadlines["interactive"]
+        met_int = (1.0 if wait + service <= dl
+                   else max(0.05, dl / (wait + service)))
+        met = tb.interactive_frac * met_int + 1 - tb.interactive_frac
+        tick_us = (weights + kv(conc, L, int(mp + mn),
+                                acfg.n_kv_heads * acfg.hd) + 50e-6) * 1e6
+        return (ceil(tb.requests, conc) * service * tick_us
+                / max(1.0, met * tb.requests * mn))
+    weights = tb.param_bytes / bw
+    flops = 2 * (tb.param_bytes / 2) / peak      # a token's, bf16 weights
+    if name == "serve.decode_batch":
+        b = cfg["batch"]
+        tick = (weights + kv(b, tb.layers, tb.context, tb.kv_width)
+                + tb.dispatch_s)
+        return ceil(tb.requests, b) * tb.mean_new * tick * 1e6
+    B, L, C = tb.batch, tb.layers, tb.context
+    if name == "serve.kv_page":
+        page = cfg["page"]
+        totals = [min(q, C - tb.mean_new) + tb.mean_new
+                  for q in tb.prompt_lens]
+        mean_total = sum(totals) / len(totals)
+        foot = sum(ceil(t, page) * page for t in totals) / len(totals)
+        conc = max(1, min(B, int((tb.pool_tokens or B * C) // foot)))
+        ticks = (ceil(int(mean_total - tb.mean_new), tb.prefill_chunk)
+                 + tb.mean_new)
+        tick = (weights + kv(conc, L, int(mean_total), tb.kv_width)
+                + conc * ceil(int(mean_total), page) * tb.page_gather_s
+                + tb.dispatch_s)
+        return ceil(tb.requests, conc) * ticks * tick * 1e6
+    stream = weights + kv(B, L, C, tb.kv_width) + tb.dispatch_s
+    if name == "serve.prefill_chunk":
+        c = cfg["chunk"]
+        prefill = stream + flops * c * B + B * L * c * (C + c) * 4 / bw
+        decode = stream + flops * B
+        return ceil(tb.requests, B) * (ceil(tb.prompt_len, c) * prefill
+                                       + tb.mean_new * decode) * 1e6
+    d = cfg["depth"]                                  # serve.spec_depth
+    a = {"ngram": tb.accept_ngram, "draft": tb.accept_draft}[cfg["drafter"]]
+    spec_tick = (2 * (weights + flops * (d + 1) * B) + stream
+                 - weights)                         # one KV stream a tick
+    if cfg["drafter"] == "draft":
+        spec_tick += d * tb.draft_cost_ratio * (weights + flops * B)
+    tokens = 1 + sum(a ** i for i in range(1, d + 1))
+    return ceil(tb.requests, B) * (ceil(tb.prompt_len, 32)
+                                   * (stream + flops * B)
+                                   + tb.mean_new / tokens * spec_tick) * 1e6
+
+
+def policy_divergence(api, plain_api, params, base, other, dev) -> dict:
+    """Phase 9(c)'s rule at bf16 full width, for two policies' drains of
+    one trace: a request never evicted under either policy ran the same
+    arithmetic in both (fixed step shapes, one row a slot), so its tokens
+    must be equal; an evicted one re-prefilled its generated tokens in a
+    chunk, so up to its first differing step its tokens are equal and
+    that step must be a near tie, as phase 7's rule has it (top-2 gap
+    under 10 d, both tokens within 10 d of the maximum), with d the
+    largest difference of two correct bf16 forwards' logits (flash and
+    plain) at that history."""
+
+    equal, total, diverged = 0, 0, []
+    for rid, (prompt, w, evicted_w) in base.items():
+        _, g, evicted_g = other[rid]
+        if len(g) != len(w):
+            raise AssertionError(f"request {rid}: {len(g)} != {len(w)} "
+                                 f"tokens")
+        total += len(w)
+        k = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if k is None:
+            equal += len(w)
+            continue
+        equal += k
+        if not (evicted_w or evicted_g):
+            raise AssertionError(f"request {rid} step {k}: {g[k]} != "
+                                 f"{w[k]}, never evicted under either "
+                                 f"policy")
+        hist = list(prompt) + w[:k]
+        flash = padded_logits(api, params, [hist], dev)[0]
+        plain = padded_logits(plain_api, params, [hist], dev)[0]
+        d = float((flash - plain).abs().max())
+        _, gap = top2(flash)
+        deficits = [float(flash.max() - flash[t]) for t in (g[k], w[k])]
+        if float(gap) >= GAP_MULT * d or max(deficits) > GAP_MULT * d:
+            raise AssertionError(
+                f"request {rid} step {k}: {g[k]} != {w[k]} at top-2 gap "
+                f"{float(gap)}, deficits {deficits} (10 d = {GAP_MULT * d})")
+        diverged.append({"request": rid, "step": k, "top2_gap": float(gap),
+                         "d": d})
+    return {"tokens_equal": equal, "tokens": total, "divergences": diverged}
+
+
+def serve_tune(dev, counters, model) -> dict:
+    """Phase 9: the serving tunables at qwen1.5-4b's full width, on phase
+    6's bf16 weights, under the H100 data-sheet constants.  (a) the five
+    tunables built through their factories, the grid engine's pick and
+    every lattice point's modeled cost, each held to a plain
+    re-derivation; (b) the slot count under the measure engine (real
+    contiguous drains of the shortlist, modeled against measured), then
+    ``choose_batch`` again, a cache hit, and (b') the prefill chunk and
+    the page size, each at its two best modeled points; (c) the
+    scheduling policy under
+    the measure engine over one seeded bursty trace through the paged
+    Server, every lattice point drained; (d) the serving driver's
+    ``--tune-*`` flags in-process; (e) speculation's depths measured on
+    the f32 cut with the n-gram drafter.  Those are the path whose
+    launches are returned (none is expected: the Server attends with
+    plain ops).  Then the checks: (c)'s tokens across policies by
+    :func:`policy_divergence`, and the same trace on the f32 cut, where
+    every policy must give every request the same tokens."""
+
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.calibrate import (DEFAULT_SPEC, get_platform_spec,
+                                       set_platform_spec)
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.runtime.scheduler import make_scheduler
+    from repro_torch.runtime.speculate import spec_depth_tunable
+    from repro_torch.runtime.tunables import (choose_batch, choose_scheduler,
+                                              decode_batch_tunable,
+                                              kv_page_tunable,
+                                              prefill_chunk_tunable,
+                                              scheduler_tunable,
+                                              timed_trace_drain)
+    from repro_torch.runtime.workload import generate_trace
+    from repro_torch.tune import TuningCache, set_default_cache, tune
+
+    api, params = model["api"], model["params"]
+    api_cut, p_cut = model["api_cut"], model["p_cut"]
+    t_phase = time.perf_counter()
+    for c in counters:
+        c.launches = 0
+    prev_spec = set_platform_spec(DEFAULT_SPEC)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cache = TuningCache(Path(tmp) / "serve_tune.json")
+
+            # (a) the modeled picks
+            spec = get_platform_spec()
+            tunables = {
+                "serve.decode_batch": decode_batch_tunable(
+                    api, params=params, **TUNE_LOAD),
+                "serve.prefill_chunk": prefill_chunk_tunable(
+                    api, prompt_len=TUNE_PROMPT, batch=TUNE_SLOTS,
+                    params=params, **TUNE_LOAD),
+                "serve.kv_page": kv_page_tunable(
+                    api, prompt_lens=[TUNE_PROMPT], batch=TUNE_SLOTS,
+                    params=params, **TUNE_LOAD),
+                "serve.spec_depth": spec_depth_tunable(
+                    api, prompt_len=TUNE_PROMPT, batch=TUNE_SLOTS,
+                    params=params, **TUNE_LOAD),
+                "serve.scheduler": scheduler_tunable(api, params=params,
+                                                     **SCHED)}
+            picks = {}
+            for name, tb in tunables.items():
+                res = tune(tb, engine="grid", cache=None)
+                lattice = []
+                for cfg in tb.space():
+                    got, want = tb.cost(cfg), rederived_us(name, tb, cfg,
+                                                           spec)
+                    if not abs(got - want) <= MODEL_REL * abs(want):
+                        raise AssertionError(f"{name} {cfg}: modeled {got} "
+                                             f"us, re-derived {want}")
+                    lattice.append([dict(cfg), got])
+                picks[name] = dict(res.best_config)
+                emit("serve_tune", part="modeled", tunable=name,
+                     pick=picks[name], modeled_us=res.t_min,
+                     hbm_bw=spec.hbm_bw, peak_flops=spec.peak_flops,
+                     lattice=lattice)
+
+            # (b) the slot count, measured: choose_batch's tune, through
+            # Recording for each point's counters
+            rec = Recording(decode_batch_tunable(api, params=params,
+                                                 **TUNE_LOAD))
+            t0 = time.perf_counter()
+            res = tune(rec, engine="measure", cache=cache, **SLOT_ENGINE)
+            tune_s = time.perf_counter() - t0
+            for c in res.stats["candidates"]:
+                st = rec.stats(c["config"])
+                emit("serve_tune", part="measured_batch",
+                     batch=c["config"]["batch"], modeled_us=c["modeled"],
+                     measured_us=c["measured"],
+                     measured_over_modeled=c["measured"] / c["modeled"],
+                     ticks=st["ticks"], tokens=st["tokens_generated"])
+                if st["tokens_generated"] != (TUNE_LOAD["requests"]
+                                              * TUNE_LOAD["max_new"]):
+                    raise AssertionError(f"slot count drain: {st}")
+            t0 = time.perf_counter()
+            batch, again = choose_batch(api, params=params, cache=cache,
+                                        engine="measure", **TUNE_LOAD,
+                                        **SLOT_ENGINE)
+            again_s = time.perf_counter() - t0
+            emit("serve_tune", part="measured_batch_pick",
+                 modeled_pick=res.stats["modeled_pick"],
+                 measured_pick=res.stats["measured_pick"], tune_s=tune_s,
+                 second_call=again.stats.get("cache"), second_pick=batch,
+                 second_call_s=again_s)
+            if again.stats.get("cache") != "hit" or \
+                    batch != res.best_config["batch"]:
+                raise AssertionError(f"choose_batch again: {batch}, "
+                                     f"{again.stats}")
+
+            # (b') the prefill chunk and the page size, measured: (a)'s
+            # tunables, their two best modeled points drained once each
+            for name in ("serve.prefill_chunk", "serve.kv_page"):
+                rec = Recording(tunables[name])
+                res = tune(rec, engine="measure", cache=cache,
+                           **PAIR_ENGINE)
+                for c in res.stats["candidates"]:
+                    st = rec.stats(c["config"])
+                    emit("serve_tune", part="measured", tunable=name,
+                         **c["config"], modeled_us=c["modeled"],
+                         measured_us=c["measured"],
+                         measured_over_modeled=c["measured"] / c["modeled"],
+                         ticks=st["ticks"], tokens=st["tokens_generated"],
+                         deferrals=st["deferrals"])
+                emit("serve_tune", part="measured_pick", tunable=name,
+                     modeled_pick=res.stats["modeled_pick"]["config"],
+                     measured_pick=res.best_config)
+
+            # (c) the scheduling policy, measured over one seeded trace
+            rec = Recording(scheduler_tunable(api, params=params, **SCHED))
+            t0 = time.perf_counter()
+            res = tune(rec, engine="measure", cache=cache, **SCHED_ENGINE)
+            tune_s = time.perf_counter() - t0
+            outs = {}
+            for c in res.stats["candidates"]:
+                st = rec.stats(c["config"])
+                emit("serve_tune", part="scheduler", **c["config"],
+                     us_per_goodput_token=c["measured"],
+                     modeled_us_per_goodput_token=c["modeled"],
+                     **{k: st[k] for k in (
+                         "goodput_tokens", "tokens", "p50_all", "p99_all",
+                         "slo_attainment", "deferrals", "preemptions",
+                         "shared_tokens", "ticks", "mean_active")})
+                outs[(c["config"]["policy"], c["config"]["age_limit"])] = {
+                    rid: (r["request"].prompt, list(r["request"].out),
+                          r["request"].preempted > 0)
+                    for rid, r in st["records"].items()}
+            again_pick, again = choose_scheduler(
+                api, params=params, cache=cache, engine_kw=SCHED_ENGINE,
+                **SCHED)
+            emit("serve_tune", part="scheduler_pick",
+                 pick=res.best_config, modeled_pick=picks["serve.scheduler"],
+                 tune_s=tune_s, second_call=again.stats.get("cache"))
+            if again.stats.get("cache") != "hit" or \
+                    list(again_pick) != [res.best_config["policy"],
+                                         res.best_config["age_limit"]]:
+                raise AssertionError(f"choose_scheduler again: {again_pick}")
+            if len(outs) != len(SCHED["policies"]) * len(SCHED["age_limits"]):
+                raise AssertionError(f"measured points: {sorted(outs)}")
+            del rec
+            torch.cuda.empty_cache()
+
+            # (d) the serving driver, in-process, under a cache of its own
+            argv = ["--arch", MODEL, "--preset", "full", "--context", "1024",
+                    "--requests", "4", "--prompt-len", "512", "--max-new",
+                    "16", "--tune-batch", "--tune-prefill", "--tune-page",
+                    "--tune-engine", "grid"]
+            buf = io.StringIO()
+            prev = set_default_cache(TuningCache(Path(tmp) / "driver.json"))
+            try:
+                with contextlib.redirect_stdout(buf):
+                    serve_main(argv)
+            finally:
+                set_default_cache(prev)
+            lines = buf.getvalue().splitlines()
+            emit("serve_tune", part="driver", argv=argv, output=lines)
+            if sum(ln.startswith("[tune]") for ln in lines) != 3 or \
+                    not any("parameters on cuda:0" in ln for ln in lines) \
+                    or not any(ln.startswith("served 4 requests / 64 tokens")
+                               for ln in lines):
+                raise AssertionError("the serving driver's output")
+            torch.cuda.empty_cache()
+
+            # (e) speculation's depths, measured on the f32 cut
+            rec = Recording(spec_depth_tunable(api_cut, params=p_cut,
+                                               **SPEC_LOAD))
+            res = tune(rec, engine="measure", cache=None, top_k=4, repeats=1)
+            for c in res.stats["candidates"]:
+                st = rec.stats(c["config"])
+                emit("serve_tune", part="spec_depth_f32_cut",
+                     n_layers=DEPTH_CUT, **c["config"],
+                     modeled_us=c["modeled"], measured_us=c["measured"],
+                     measured_over_modeled=c["measured"] / c["modeled"],
+                     **{k: st[k] for k in ("spec_proposed", "spec_accepted",
+                                           "ticks", "tokens_generated")})
+            emit("serve_tune", part="spec_depth_pick",
+                 modeled_pick_full_width=picks["serve.spec_depth"],
+                 measured_pick_f32_cut=res.best_config,
+                 modeled_pick_f32_cut=res.stats["modeled_pick"]["config"])
+            if len(res.stats["candidates"]) != 4:
+                raise AssertionError("speculation: not every depth measured")
+            torch.cuda.synchronize()
+            # (f) the path ends here
+            launches = [c.launches for c in counters]
+            phase_s = time.perf_counter() - t_phase
+
+            # the checks: (c)'s tokens across policies at bf16, full width
+            base = outs[(SCHED["policies"][0], SCHED["age_limits"][0])]
+            for key, other in outs.items():
+                emit("serve_tune", part="policy_tokens_bf16", policy=key[0],
+                     age_limit=key[1], against=SCHED["policies"][0],
+                     **policy_divergence(api, model["plain_api"], params,
+                                         base, other, dev))
+            # and on the f32 cut, exactly
+            trace = generate_trace(scheduler_tunable(
+                api_cut, **SCHED).trace_config())
+            cut = {}
+            for policy in SCHED["policies"]:
+                st = {}
+                timed_trace_drain(
+                    api_cut, p_cut, trace, batch=SCHED["batch"],
+                    context=SCHED["context"],
+                    prefill_chunk=SCHED["prefill_chunk"], paged=True,
+                    page_size=SCHED["page_size"],
+                    kv_pages=SCHED["kv_pages"],
+                    scheduler=make_scheduler(
+                        policy, age_limit=SCHED["age_limits"][0]),
+                    share_prefix=policy == "prefix", stats_out=st,
+                    warmup=0, iters=1)
+                cut[policy] = {rid: list(r["request"].out)
+                               for rid, r in st["records"].items()}
+                emit("serve_tune", part="policy_tokens_f32_cut",
+                     n_layers=DEPTH_CUT, policy=policy,
+                     equal_to=SCHED["policies"][0],
+                     equal=cut[policy] == cut[SCHED["policies"][0]],
+                     **{k: st[k] for k in ("ticks", "goodput_tokens",
+                                           "deferrals", "preemptions",
+                                           "shared_tokens")})
+            if any(v != cut[SCHED["policies"][0]] for v in cut.values()):
+                raise AssertionError("the f32 cut's tokens differ across "
+                                     "policies")
+    finally:
+        set_platform_spec(prev_spec)
+    torch.cuda.synchronize()
+    emit("serve_tune", part="phase", seconds=phase_s,
+         checks_s=time.perf_counter() - t_phase - phase_s)
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1409,9 +1852,14 @@ def main() -> int:
     if checked["launches"][names.index("sweep_eval")] <= 0:
         raise AssertionError("sweep_eval never launched on the model "
                              "checker's path")
-    for kernel, n, m, k in zip(names, model["launches"],
-                               model["paged_launches"], checked["launches"]):
-        launches[kernel] += n + m + k
+    # 9. the serving tunables at full width ---------------------------------
+    served = serve_tune(dev, counters, model)
+    emit("kernels", phase_of="serve_tune", launches=dict(zip(
+        names, served["launches"])))
+    for kernel, n, m, k, t in zip(names, model["launches"],
+                                  model["paged_launches"],
+                                  checked["launches"], served["launches"]):
+        launches[kernel] += n + m + k + t
 
     sources = {"tuned_reduction": ("src/repro_torch/csrc/tuned_reduction.cu",
                                    "src/repro/kernels/tuned_reduction/kernel.py:76"),

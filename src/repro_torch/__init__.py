@@ -6,3 +6,5 @@ plain PyTorch, with the kernels on its path written by hand in CUDA C++
 unless given CPU tensors or ``device="cpu"``, where each kernel's plain
 PyTorch version runs instead.
 """
+
+__version__ = "1.0.0"

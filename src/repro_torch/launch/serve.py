@@ -10,6 +10,13 @@ Example (qwen1.5-4b at full width, random weights from ``--seed``):
 
 ``--preset smoke`` runs the architecture's reduced variant; ``--device
 cpu`` runs the plain PyTorch versions on the host.
+
+``--tune-batch``, ``--tune-prefill``, ``--tune-page``, ``--tune-spec`` and
+``--tune-scheduler`` pick the slot count, the prefill chunk, the KV page
+size, the speculation policy and the scheduling policy through a
+:class:`~repro_torch.tune.TuningPlan` before the drain, each printing a
+``[tune]`` line; ``--tune-engine measure`` times real drains of the
+shortlisted points.
 """
 
 from __future__ import annotations
@@ -23,7 +30,9 @@ import torch
 from ..configs import get_config
 from ..models import build_model
 from ..runtime.serve import Server
-from ..runtime.speculate import DRAFTER_KINDS
+from ..runtime.speculate import DRAFTER_KINDS, spec_depth_tunable
+from ..runtime.tunables import (decode_batch_tunable, kv_page_tunable,
+                                prefill_chunk_tunable, scheduler_tunable)
 
 
 def main(argv=None) -> None:
@@ -57,6 +66,24 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda:0",
                     help="cuda:0 (default) or cpu")
+    ap.add_argument("--tune-batch", action="store_true",
+                    help="pick the slot count via repro_torch.tune")
+    ap.add_argument("--tune-prefill", action="store_true",
+                    help="pick the prefill chunk size via repro_torch.tune")
+    ap.add_argument("--tune-page", action="store_true",
+                    help="pick the KV page size via repro_torch.tune "
+                         "(implies --paged)")
+    ap.add_argument("--tune-spec", action="store_true",
+                    help="pick the speculation policy (depth x drafter) "
+                         "via repro_torch.tune (implies speculation)")
+    ap.add_argument("--tune-scheduler", action="store_true",
+                    help="pick the scheduling policy (policy x age_limit) "
+                         "via repro_torch.tune over a seeded traffic trace "
+                         "(implies --paged)")
+    ap.add_argument("--tune-engine", default="grid",
+                    help="tuning engine for the --tune-* flags; 'measure' "
+                         "refines the modeled pick with timed server "
+                         "drains")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -65,17 +92,86 @@ def main(argv=None) -> None:
     api = build_model(cfg)
     t0 = time.perf_counter()
     params = api.init(args.seed, device=args.device)
-    server = Server(api, params, batch=args.batch, context=args.context,
-                    prefill_chunk=args.prefill_chunk,
-                    paged=args.paged or args.share_prefix,
-                    page_size=args.page_size, kv_pages=args.kv_pages,
-                    share_prefix=args.share_prefix,
-                    speculate=args.speculate, spec_depth=args.spec_depth)
-    if server.device.type == "cuda":
-        torch.cuda.synchronize(server.device)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     print(f"model {cfg.name} ({args.preset}): {api.param_count():,} "
-          f"parameters on {server.device}, set up in "
+          f"parameters on {device}, set up in "
           f"{time.perf_counter() - t0:.2f}s")
+
+    def run_job(tunable, label, key):
+        from ..tune import TuningPlan
+        plan = TuningPlan(name=f"serve.{args.arch}")
+        plan.add(tunable, engine=args.tune_engine, label=label)
+        job = plan.run(progress=None).results[0]
+        if job.status == "failed":
+            raise RuntimeError(f"--tune-{label} failed: {job.error}")
+        picked = dict(job.best_config)
+        shown = ",".join(f"{k}={v}" for k, v in sorted(picked.items()))
+        print(f"[tune] {shown} "
+              f"{job.provenance or 'modeled'} drain="
+              f"{job.t_min / 1e3:.1f} ms (engine={job.engine}, "
+              f"cache {job.status})")
+        return picked if key is None else int(picked[key])
+
+    batch = args.batch
+    prefill_chunk = args.prefill_chunk
+    page_size = args.page_size
+    paged = (args.paged or args.tune_page or args.share_prefix
+             or args.tune_scheduler)
+    if args.tune_batch:
+        tb = decode_batch_tunable(api, context=args.context,
+                                  requests=args.requests,
+                                  max_new=args.max_new, params=params)
+        batch = run_job(tb, "batch", "batch")
+    if args.tune_prefill:
+        # after --tune-batch so the chunk is tuned (and cached) for the
+        # slot count the server will actually run
+        tp = prefill_chunk_tunable(api, context=args.context,
+                                   prompt_len=args.prompt_len,
+                                   requests=args.requests,
+                                   max_new=args.max_new,
+                                   batch=batch, params=params)
+        prefill_chunk = run_job(tp, "prefill", "chunk")
+    if args.tune_page:
+        tk = kv_page_tunable(api, context=args.context,
+                             prompt_lens=[args.prompt_len],
+                             requests=args.requests, max_new=args.max_new,
+                             batch=batch, params=params)
+        page_size = run_job(tk, "page", "page")
+    speculate = args.speculate
+    spec_depth = args.spec_depth
+    if args.tune_spec:
+        ts = spec_depth_tunable(api, context=args.context,
+                                prompt_len=args.prompt_len,
+                                requests=args.requests,
+                                max_new=args.max_new, batch=batch,
+                                params=params)
+        picked = run_job(ts, "spec", None)
+        spec_depth = int(picked["depth"])
+        speculate = str(picked["drafter"])
+    scheduler = None
+    share_prefix = args.share_prefix
+    if args.tune_scheduler:
+        # policy differences are what the modeled cost can only rank,
+        # not settle — this tunable measures real trace drains
+        tsc = scheduler_tunable(api, context=args.context, batch=batch,
+                                requests=args.requests,
+                                page_size=page_size,
+                                prefill_chunk=prefill_chunk,
+                                prompt_len=(max(2, args.prompt_len // 2),
+                                            args.prompt_len),
+                                max_new=(max(1, args.max_new // 2),
+                                         args.max_new), params=params)
+        picked = run_job(tsc, "scheduler", None)
+        scheduler = str(picked["policy"])
+        share_prefix = share_prefix or scheduler == "prefix"
+
+    server = Server(api, params, batch=batch, context=args.context,
+                    prefill_chunk=prefill_chunk, paged=paged,
+                    page_size=page_size, kv_pages=args.kv_pages,
+                    scheduler=scheduler, share_prefix=share_prefix,
+                    speculate=speculate, spec_depth=spec_depth)
 
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
@@ -99,6 +195,12 @@ def main(argv=None) -> None:
               f"deferrals, {server.share_hits} prefix shares "
               f"({server.shared_tokens} tokens), {server.cow_copies} page "
               f"copies")
+    if scheduler is not None or share_prefix:
+        print(f"scheduler: policy={scheduler or 'fcfs'} "
+              f"preemptions={st['preemptions']:.0f} "
+              f"share_hits={st['share_hits']:.0f} "
+              f"shared_tokens={st['shared_tokens']:.0f} "
+              f"cow_copies={st['cow_copies']:.0f}")
     if server.drafter is not None:
         print(f"speculate ({server.drafter.name}, depth "
               f"{server.spec_depth}): {st['spec_accepted']:.0f} of "

@@ -43,9 +43,9 @@ Three policies ship behind the ``register_scheduler`` registry:
   resident; OOM victims are chosen among non-source slots first to keep
   shared prefixes hot.
 
-In the reference the policy choice itself is a tunable
-(``serve.scheduler``); the port's serving tunables are not ported yet
-(ROADMAP queue 1, item 16).  A paged ``Server`` answers the page hooks
+The policy choice itself is a tunable
+(:class:`~repro_torch.runtime.tunables.SchedulerTunable`,
+``serve.scheduler``), measured over a seeded traffic trace.  A paged ``Server`` answers the page hooks
 (``admit_fits``, ``shared_prefix_len``, ``is_share_source``) from its
 :class:`~repro_torch.runtime.kv.PagedKVAllocator`; a contiguous one as
 the reference's does (always fits, nothing shared).

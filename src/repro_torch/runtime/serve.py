@@ -661,4 +661,26 @@ class Server:
         raise RuntimeError("serving did not drain")
 
 
-__all__ = ["Server", "Request", "Scheduler", "make_scheduler"]
+# the serving tunables and their harnesses live in runtime/tunables.py
+# (the policies in runtime/scheduler.py); re-exported here as the
+# reference's runtime.serve does, so its import paths work on the port
+
+from .scheduler import SCHEDULER_KINDS  # noqa: E402,F401
+from .tunables import (K_AND_V, KV_CACHE_BYTES,  # noqa: E402,F401
+                       DecodeBatchTunable, KVPageTunable,
+                       PrefillChunkTunable, SchedulerTunable,
+                       _require_model, choose_batch, choose_kv_page,
+                       choose_prefill_chunk, choose_scheduler,
+                       decode_batch_tunable, kv_cache_stream_s,
+                       kv_page_tunable, prefill_chunk_tunable,
+                       scheduler_tunable, timed_server_drain,
+                       timed_trace_drain)
+
+__all__ = ["Server", "Request", "Scheduler", "make_scheduler",
+           "SCHEDULER_KINDS",
+           "DecodeBatchTunable", "PrefillChunkTunable", "KVPageTunable",
+           "SchedulerTunable", "decode_batch_tunable",
+           "prefill_chunk_tunable", "kv_page_tunable", "scheduler_tunable",
+           "choose_batch", "choose_prefill_chunk", "choose_kv_page",
+           "choose_scheduler", "kv_cache_stream_s", "timed_server_drain",
+           "timed_trace_drain"]

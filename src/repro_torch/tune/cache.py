@@ -40,8 +40,12 @@ _DEFAULT_PATH = "~/.cache/repro_torch/tune_cache.json"
 def platform_fingerprint() -> dict[str, str]:
     """The platform a tuned config is valid for: the backend ("cuda"
     when a card is present, else "cpu"), the card's name and compute
-    capability, the torch version, and the calibration id (the literal
-    ``"default"``: the port's cost models use data-sheet constants)."""
+    capability, the torch version, and the calibration id
+    (:func:`repro_torch.calibrate.calibration_hash`: the literal
+    ``"default"`` under the data-sheet constants, so entries tuned under
+    them keep their keys)."""
+
+    from ..calibrate.spec import calibration_hash
 
     if torch.cuda.is_available():
         major, minor = torch.cuda.get_device_capability(0)
@@ -51,7 +55,7 @@ def platform_fingerprint() -> dict[str, str]:
     else:
         fp = {"backend": "cpu", "device_kind": "cpu", "capability": ""}
     fp["torch"] = torch.__version__
-    fp["calibration"] = "default"
+    fp["calibration"] = calibration_hash()
     return fp
 
 

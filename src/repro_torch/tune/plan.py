@@ -22,8 +22,10 @@ Spec format (JSON or dict)::
 
 ``tunable`` names resolve through a registry (:func:`register_tunable`):
 ``platform.abstract``, ``platform.minimum``, ``kernels.tuned_reduction``,
-``kernels.sweep_eval``, ``kernels.matmul_tuned`` and
-``kernels.flash_attention`` are pre-registered.
+``kernels.sweep_eval``, ``kernels.matmul_tuned``,
+``kernels.flash_attention`` and the serving tunables
+``serve.decode_batch``, ``serve.prefill_chunk``, ``serve.kv_page``,
+``serve.spec_depth`` and ``serve.scheduler`` are pre-registered.
 ``grid`` expands list-valued entries into the cartesian product of jobs.
 """
 
@@ -92,10 +94,18 @@ def _ensure_builtin_factories() -> None:
     from ..kernels.matmul_tuned.ops import MatmulTunable
     from ..kernels.sweep_eval.ops import SweepEvalTunable
     from ..kernels.tuned_reduction.ops import ReductionTunable
+    from ..runtime.speculate import SpecDepthTunable
+    from ..runtime.tunables import (DecodeBatchTunable, KVPageTunable,
+                                    PrefillChunkTunable, SchedulerTunable)
     _FACTORIES.setdefault("kernels.flash_attention", FlashAttentionTunable)
     _FACTORIES.setdefault("kernels.matmul_tuned", MatmulTunable)
     _FACTORIES.setdefault("kernels.tuned_reduction", ReductionTunable)
     _FACTORIES.setdefault("kernels.sweep_eval", SweepEvalTunable)
+    _FACTORIES.setdefault("serve.decode_batch", DecodeBatchTunable)
+    _FACTORIES.setdefault("serve.prefill_chunk", PrefillChunkTunable)
+    _FACTORIES.setdefault("serve.kv_page", KVPageTunable)
+    _FACTORIES.setdefault("serve.spec_depth", SpecDepthTunable)
+    _FACTORIES.setdefault("serve.scheduler", SchedulerTunable)
     for kind in ("abstract", "minimum"):
         _FACTORIES.setdefault(
             f"platform.{kind}",

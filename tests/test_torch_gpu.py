@@ -659,3 +659,25 @@ def test_self_draft_accepts_every_draft_on_the_card(cuda, paged):
     assert outs == base
     st = srv.stats()
     assert st["spec_proposed"] > 0 and st["accept_rate"] == 1.0
+
+
+def test_choose_batch_measures_drains_on_the_card_then_hits(cuda, tmp_path):
+    """``serve.decode_batch`` under the measure engine on a 2-layer cut of
+    qwen1.5-4b at full width (bf16, on the card): the pick is one of the
+    shortlisted slot counts, each timed by CUDA events around a real
+    drain, and a second call hits the cache and drains nothing."""
+
+    from repro_torch.runtime.tunables import choose_batch
+    cfg = get_config("qwen1.5-4b").replace(n_layers=2)
+    api = build_model(cfg)
+    params = api.init(0, device=cuda)
+    cache = TuningCache(tmp_path / "batch.json")
+    kw = dict(context=128, requests=4, max_new=4, params=params,
+              cache=cache, engine="measure", top_k=3, repeats=1)
+    batch, res = choose_batch(api, **kw)
+    assert res.stats["provenance"] == "measured"
+    shortlist = [c["config"]["batch"] for c in res.stats["candidates"]]
+    assert batch in shortlist and len(shortlist) == 3
+    assert all(c["measured"] > 0 for c in res.stats["candidates"])
+    again, res2 = choose_batch(api, **kw)
+    assert again == batch and res2.stats["cache"] == "hit"

@@ -32,6 +32,8 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     FlashAttentionTunable, flash_attention)
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.runtime.tunables import timed_server_drain  # noqa: E402
+from repro_torch.tune import build_tunable  # noqa: E402
 
 N = 2**14
 PAPER = {"size": 2**20, "NP": 128, "GMT": 16, "L": 8, "kind": "minimum"}
@@ -112,6 +114,16 @@ def test_entry_points_without_a_card_raise():
         lambda: serve_main(["--arch", "smollm-135m", "--requests", "1",
                             "--paged", "--share-prefix", "--speculate",
                             "draft"]),
+        lambda: serve_main(["--arch", "smollm-135m", "--requests", "1",
+                            "--tune-batch", "--tune-scheduler"]),
+        # params holding no tensor: the card
+        lambda: timed_server_drain(api, None, batch=1, context=16,
+                                   prompts=[[1, 2]], max_new=1),
+        # JSON-only params, no device: measure builds its model on the card
+        lambda: build_tunable("serve.scheduler", {
+            "context": 32, "requests": 2, "prompt_len": [2, 4],
+            "max_new": [1, 2], "prefix_len": 4}).measure(
+                {"policy": "fcfs", "age_limit": 4}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -133,6 +145,11 @@ bad = [m for m in sys.modules
        if m in ("jax", "ml_dtypes", "repro") or m.startswith(("jax.", "repro."))]
 assert not bad, bad
 assert len(names) >= 40, names
+for name in ("repro_torch.obs", "repro_torch.obs.metrics",
+             "repro_torch.obs.trace", "repro_torch.calibrate",
+             "repro_torch.calibrate.spec", "repro_torch.tune.artifact",
+             "repro_torch.runtime.tunables", "repro_torch.runtime.workload"):
+    assert name in names, name
 print(len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
