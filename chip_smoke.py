@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's main paths on one CUDA card, end to end: the tuning
 loop, the dense model path, the paged serving path (qwen1.5-4b at full
-width), the model checker and the serving tunables.
+width), the model checker, the serving tunables, and the card's
+calibration with the Server observed on it.
 
     python3 chip_smoke.py
 
@@ -72,7 +73,28 @@ Each phase prints one JSON line:
    each kernel's launches during the phase (none: the Server attends
    with plain ops), and the checks: the policies' tokens at bf16 (equal
    but where an evicted request re-prefilled, and there only at a near
-   tie) and on the f32 cut (equal).
+   tie) and on the f32 cut (equal);
+10. ``calibrate`` / ``observe`` — the card calibrated and the Server
+   observed on it: (a) ``run_calibration`` at the card's ladders (matmul
+   1024-8192 in bf16, a one-kernel triad up to 4 GB, the host-clock
+   dispatch probe), the fitted peak FLOP/s and bandwidth within 50-105 %
+   of the data sheet and the dispatch within 1-1,000 us, then
+   ``ensure_calibrated`` twice (a probe, then a pure load); (b) a plan
+   with ``"calibrate": true`` (its ``[calibrate]`` line first, a cache
+   key of its own); (c) the Minimum model at sizes 8-64 under the fitted
+   GMT (about 1,000): the explorer's t_min and pick against ``sweep``
+   and the ``sweep_eval`` kernel, bit-equal to its plain version and to
+   the int64 model; (d) phase 9's measured drains over their modeled
+   costs under both specs, and the picks under the fitted one; (e) the
+   modeled-vs-measured trajectory of the reduction and the bf16 matmul
+   at phase 4's shapes; (f) phase 7(b)'s shared drain again with
+   ``Observability(trace, metrics, monitor)`` and a ``TracingScheduler``:
+   the same tokens, the monitor accepting, the document passing
+   ``python -m repro_torch.obs check`` and ``summarize``; (g) the same
+   drain profiled, phase by phase; (h) ``python -m
+   repro_torch.launch.serve ... --paged --scheduler priority --trace
+   --metrics --profile`` as a subprocess; then each kernel's launches
+   during (c) and (e).
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -205,6 +227,13 @@ PAIR_ENGINE = {"top_k": 2, "repeats": 1}
 SPEC_LOAD = dict(context=1024, prompt_len=128, requests=4, max_new=16,
                  batch=4, drafters=("ngram",))
 MODEL_REL = 1e-9    # a modeled cost against its plain re-derivation
+# phase 10(h): the serving driver at phase 6's load, paged through phase
+# 7's 112 pages, with the policy, trace, metrics and profile flags
+OBSERVE_DRIVER = ["--arch", MODEL, "--preset", "full", "--requests", "4",
+                  "--batch", "4", "--context", "1024", "--prompt-len", "512",
+                  "--max-new", "16", "--prefill-chunk", "256", "--paged",
+                  "--kv-pages", "112", "--scheduler", "priority", "--metrics",
+                  "--profile"]
 
 
 def emit(phase: str, **fields) -> None:
@@ -692,7 +721,8 @@ def paged_path(dev, counters, api, params, api_cut, p_cut, d) -> tuple:
     never-speculated drain's, and each of its drafts against the target's
     tokens; (d')'s tokens against its never-speculated drain's, counted
     (bf16 at full depth: not asserted).  Returns the launches and (b)'s
-    allocator trace with its spec."""
+    allocator trace with its spec, its prompts, tokens, ticks and wall
+    time (phase 10 observes the same drain)."""
 
     import numpy as np
     import torch
@@ -748,7 +778,10 @@ def paged_path(dev, counters, api, params, api_cut, p_cut, d) -> tuple:
     server.alloc.trace = []
     run_b = two_waves(server, prompts, MAX_NEW)
     shared_trace = {"trace": list(server.alloc.trace),
-                    "spec": server.alloc.spec, "n_slots": server.batch}
+                    "spec": server.alloc.spec, "n_slots": server.batch,
+                    "prompts": prompts,
+                    "out": [r.out for r in run_b["reqs"]],
+                    "ticks": server.ticks, "wall_s": run_b["wall_s"]}
     equal = sum(x == y for o_a, o_b in zip(out_a, (r.out for r in
                                                     run_b["reqs"]))
                 for x, y in zip(o_a, o_b))
@@ -1283,7 +1316,14 @@ def serve_tune(dev, counters, model) -> dict:
                     params=params, **TUNE_LOAD),
                 "serve.scheduler": scheduler_tunable(api, params=params,
                                                      **SCHED)}
-            picks = {}
+            picks, measured = {}, {}
+
+            def keep(name, tb, res, rec):
+                measured[name] = {"tunable": tb, "points": [
+                    (dict(c["config"]), c["measured"], c["modeled"],
+                     rec.stats(c["config"])["ticks"])
+                    for c in res.stats["candidates"]]}
+
             for name, tb in tunables.items():
                 res = tune(tb, engine="grid", cache=None)
                 lattice = []
@@ -1307,6 +1347,7 @@ def serve_tune(dev, counters, model) -> dict:
             t0 = time.perf_counter()
             res = tune(rec, engine="measure", cache=cache, **SLOT_ENGINE)
             tune_s = time.perf_counter() - t0
+            keep("serve.decode_batch", rec.inner, res, rec)
             for c in res.stats["candidates"]:
                 st = rec.stats(c["config"])
                 emit("serve_tune", part="measured_batch",
@@ -1338,6 +1379,7 @@ def serve_tune(dev, counters, model) -> dict:
                 rec = Recording(tunables[name])
                 res = tune(rec, engine="measure", cache=cache,
                            **PAIR_ENGINE)
+                keep(name, rec.inner, res, rec)
                 for c in res.stats["candidates"]:
                     st = rec.stats(c["config"])
                     emit("serve_tune", part="measured", tunable=name,
@@ -1355,6 +1397,7 @@ def serve_tune(dev, counters, model) -> dict:
             t0 = time.perf_counter()
             res = tune(rec, engine="measure", cache=cache, **SCHED_ENGINE)
             tune_s = time.perf_counter() - t0
+            keep("serve.scheduler", rec.inner, res, rec)
             outs = {}
             for c in res.stats["candidates"]:
                 st = rec.stats(c["config"])
@@ -1409,6 +1452,7 @@ def serve_tune(dev, counters, model) -> dict:
             rec = Recording(spec_depth_tunable(api_cut, params=p_cut,
                                                **SPEC_LOAD))
             res = tune(rec, engine="measure", cache=None, top_k=4, repeats=1)
+            keep("serve.spec_depth", rec.inner, res, rec)
             for c in res.stats["candidates"]:
                 st = rec.stats(c["config"])
                 emit("serve_tune", part="spec_depth_f32_cut",
@@ -1468,7 +1512,363 @@ def serve_tune(dev, counters, model) -> dict:
     torch.cuda.synchronize()
     emit("serve_tune", part="phase", seconds=phase_s,
          checks_s=time.perf_counter() - t_phase - phase_s)
-    return {"launches": launches}
+    return {"launches": launches, "picks": picks, "tunables": tunables,
+            "measured": measured}
+
+
+def repriced(measured, tunables, picks, fitted) -> None:
+    """Phase 10(d): phase 9's measured drains against each tunable's
+    modeled cost under the data-sheet spec and under the fitted one (the
+    models as they are: the fitted bandwidth and FLOP/s, the tunables'
+    own 50 us dispatch), and with the fitted dispatch latency put in the
+    tunables' ``dispatch_s`` (charged once a tick, as the models charge
+    it).  For the slot count, the implied dispatches a tick are the
+    measured tick less the fitted model's bytes and FLOPs a tick (its
+    tick less its one dispatch), over the fitted dispatch latency.
+    Then each tunable's grid pick under the fitted spec against phase 9's
+    (a)."""
+
+    import dataclasses
+
+    from repro_torch.calibrate import DEFAULT_SPEC, set_platform_spec
+    from repro_torch.tune import tune
+
+    prev = set_platform_spec(DEFAULT_SPEC)
+    try:
+        default = {name: [tb["tunable"].cost(cfg) for cfg, *_ in
+                          tb["points"]] for name, tb in measured.items()}
+        set_platform_spec(fitted)
+        for name, entry in measured.items():
+            tb = entry["tunable"]
+            has_dispatch = hasattr(tb, "dispatch_s")
+            tb_disp = (dataclasses.replace(tb, dispatch_s=fitted.dispatch_s)
+                       if has_dispatch else None)
+            rows = []
+            for (cfg, us, modeled, ticks), d_us in zip(entry["points"],
+                                                       default[name]):
+                if abs(d_us - modeled) > MODEL_REL * abs(modeled):
+                    raise AssertionError(f"{name} {cfg}: phase 9 modeled "
+                                         f"{modeled}, now {d_us}")
+                f_us = tb.cost(cfg)
+                row = {"config": cfg, "measured_us": us, "ticks": ticks,
+                       "modeled_default_us": d_us, "modeled_fitted_us": f_us,
+                       "ratio_default": us / d_us, "ratio_fitted": us / f_us}
+                if has_dispatch:
+                    fd_us = tb_disp.cost(cfg)
+                    row.update(modeled_fitted_dispatch_us=fd_us,
+                               ratio_fitted_dispatch=us / fd_us,
+                               measured_tick_us=us / ticks)
+                if name == "serve.decode_batch":
+                    # the model's ticks: ceil(requests / slots) waves of
+                    # mean_new decode ticks
+                    model_ticks = (-(-tb.requests // cfg["batch"])
+                                   * tb.mean_new)
+                    work_us = f_us / model_ticks - tb.dispatch_s * 1e6
+                    row.update(modeled_work_per_tick_us=work_us,
+                               implied_dispatches_per_tick=(
+                                   (us / ticks - work_us)
+                                   / fitted.dispatch_us))
+                rows.append(row)
+            emit("calibrate", part="repriced", tunable=name,
+                 dispatch_us_fitted=fitted.dispatch_us, points=rows)
+        moved = {}
+        for name, tb in tunables.items():
+            pick = dict(tune(tb, engine="grid", cache=None).best_config)
+            moved[name] = {"default": picks[name], "fitted": pick,
+                           "moved": pick != picks[name]}
+        emit("calibrate", part="repriced_picks", picks=moved)
+    finally:
+        set_platform_spec(prev)
+
+
+def calibrate_and_observe(dev, counters, model, served) -> dict:
+    """Phase 10: the card calibrated, and the Server observed on it.
+    (a) the probes at the card's ladders, the fit against the data sheet,
+    then ``ensure_calibrated`` twice on a temporary artifact (the second
+    a pure load); (b) a plan with ``"calibrate": true``; (c) the Minimum
+    model at sizes 8-64 under the fitted GMT: the explorer's t_min and
+    pick against ``sweep`` and the ``sweep_eval`` kernel, bit-equal to
+    its plain version; (d) phase 9's measured drains re-priced under the
+    fitted spec; (e) the trajectory on the reduction's and the bf16
+    matmul's tunables at phase 4's shapes; (f) phase 7(b)'s full-width
+    shared drain again, observed (trace, metrics, monitor) through a
+    ``TracingScheduler``, its tokens equal to 7(b)'s, its document
+    checked by the obs CLI; (g) the same drain profiled, with the drain
+    unobserved before (f) and after (g) for their wall times; (h) the serving
+    driver with ``--scheduler priority --trace --metrics --profile`` as a
+    subprocess.  (c) and (e) are the path whose launches are returned.
+    The active platform spec is set explicitly and restored at the end."""
+
+    import os
+
+    import torch
+    from repro_torch.calibrate import (DEFAULT_SPEC, ensure_calibrated,
+                                       run_calibration, run_trajectory,
+                                       set_platform_spec)
+    from repro_torch.core import PlatformSpec, WaveParams, model_time_torch
+    from repro_torch.kernels.matmul_tuned.ops import MatmulTunable
+    from repro_torch.kernels.sweep_eval.ops import sweep_eval, sweep_ref
+    from repro_torch.kernels.tuned_reduction.ops import ReductionTunable
+    from repro_torch.obs import Observability, validate_trace
+    from repro_torch.runtime import Server, TracingScheduler, make_scheduler
+    from repro_torch.tune import (PlatformTunable, TuningCache, TuningPlan,
+                                  set_default_cache, tune)
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    prev_spec = set_platform_spec(DEFAULT_SPEC)
+    prev_env = os.environ.get("REPRO_TORCH_PLATFORM_SPEC")
+    prev_cache = None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ["REPRO_TORCH_PLATFORM_SPEC"] = str(
+                Path(tmp) / "plan_spec.json")
+            prev_cache = set_default_cache(TuningCache(Path(tmp) /
+                                                       "cache.json"))
+
+            # (a) the probes at the card's ladders
+            t0 = time.perf_counter()
+            fitted = run_calibration()
+            cal_s = time.perf_counter() - t0
+            pr = fitted.probes
+            for sweep in ("matmul", "triad", "dispatch", "collective"):
+                emit("calibrate", part=f"sweep_{sweep}", rows=pr[sweep])
+            shares = {key: getattr(fitted, key) / getattr(DEFAULT_SPEC, key)
+                      for key in ("peak_flops", "hbm_bw")}
+            emit("calibrate", part="fit", card=smi, seconds=cal_s,
+                 fitted=pr["fitted"], constants=fitted.constants(),
+                 data_sheet=DEFAULT_SPEC.constants(),
+                 share_of_data_sheet=shares, hash=fitted.calibration_hash())
+            for key, share in shares.items():
+                if not 0.5 <= share <= 1.05:
+                    raise AssertionError(f"fitted {key} is {share:.1%} of the "
+                                         f"data sheet (want 50-105 %)")
+            if not 1.0 <= fitted.dispatch_us <= 1000.0:
+                raise AssertionError(f"fitted dispatch {fitted.dispatch_us} "
+                                     f"us (want 1-1,000)")
+            path = Path(tmp) / "platform_spec.json"
+            first, probed1 = ensure_calibrated(path, install=False,
+                                               quick=True)
+            again, probed2 = ensure_calibrated(path, install=False,
+                                               quick=True)
+            emit("calibrate", part="ensure_calibrated",
+                 probed=[probed1, probed2], hash=again.calibration_hash(),
+                 same=again == first)
+            if not probed1 or probed2 or again != first or \
+                    again.calibration_hash() == "default":
+                raise AssertionError("ensure_calibrated: probe then load")
+            torch.cuda.empty_cache()
+
+            # (b) the plan's "calibrate" key: the uncalibrated plan under
+            # the data-sheet spec, then the calibrated one
+            job = {"tunable": "kernels.tuned_reduction",
+                   "params": {"n": REDUCE_N}, "engine": "grid"}
+            cache = TuningCache(Path(tmp) / "plan_cache.json")
+            plain = TuningPlan.from_spec({"name": "plain", "jobs": [job]}
+                                         ).run(cache=cache)
+            lines: list[str] = []
+            plan = TuningPlan.from_spec({"name": "calibrated",
+                                         "calibrate": True, "jobs": [job]})
+            report = plan.run(cache=cache, progress=lines.append)
+            emit("calibrate", part="plan", lines=lines,
+                 keys=[plain.results[0].key, report.results[0].key],
+                 statuses=[plain.results[0].status,
+                           report.results[0].status])
+            if not lines[0].startswith("[calibrate] probed cuda/") or \
+                    not report.ok or \
+                    report.results[0].key == plain.results[0].key:
+                raise AssertionError(f"calibrated plan: {lines}")
+            set_platform_spec(fitted)
+
+            # the path from here: (c) and (e)
+            for c in counters:
+                c.launches = 0
+
+            # (c) the Minimum model under the card's GMT
+            for size in MC_MINIMUM:
+                wave = WaveParams.from_platform(size, spec=fitted, NP=4,
+                                                kind="minimum")
+                spec = PlatformSpec(size, NP=4, GMT=wave.GMT, kind="minimum")
+                if PlatformTunable(spec).wave != wave:
+                    raise AssertionError(f"size {size}: {wave} != "
+                                         f"{PlatformTunable(spec).wave}")
+                choices = spec.config_choices()
+                wg = torch.tensor([w for w, _ in choices], dtype=torch.int32,
+                                  device=dev)
+                ts = torch.tensor([t for _, t in choices], dtype=torch.int32,
+                                  device=dev)
+                times = sweep_eval(wg, ts, wave, threads=64, ept=1)
+                exact = model_time_torch(wave, wg.cpu(), ts.cpu())
+                if not torch.equal(times.cpu(), sweep_ref(wave, wg.cpu(),
+                                                          ts.cpu())) \
+                        or int(exact.max()) >= 2**31 - 1 or \
+                        not torch.equal(times.cpu().long(), exact):
+                    raise AssertionError(f"minimum size {size} at GMT "
+                                         f"{wave.GMT}: kernel, plain and "
+                                         f"int64 model differ")
+                on_card = dict(zip(choices, times.cpu().tolist()))
+                sweep = tune(PlatformTunable(spec), engine="sweep",
+                             cache=None)
+                t0 = time.perf_counter()
+                res = tune(PlatformTunable(spec), engine="explorer",
+                           cache=None)
+                wall = time.perf_counter() - t0
+                pick = (res.best_config["WG"], res.best_config["TS"])
+                t_min = min(on_card.values())
+                base = WaveParams(size, NP=4, GMT=4, kind="minimum")
+                base_t = model_time_torch(base, wg.cpu(), ts.cpu()).tolist()
+                argmin = {c for c, t in on_card.items() if t == t_min}
+                base_argmin = {c for c, t in zip(choices, base_t)
+                               if t == min(base_t)}
+                emit("calibrate", part="minimum", size=size, GMT=wave.GMT,
+                     lattice_points=len(choices), t_min=res.t_min,
+                     sweep_t_min=sweep.t_min, kernel_min=t_min,
+                     kernel_at_pick=on_card[pick], pick=res.best_config,
+                     sweep_pick=sweep.best_config,
+                     argmin=sorted(argmin), argmin_at_gmt4=sorted(base_argmin),
+                     pick_moved=argmin != base_argmin,
+                     largest_time=int(exact.max()), states=res.stats.get(
+                         "states"), wall_s=wall)
+                if not res.t_min == sweep.t_min == t_min == on_card[pick] \
+                        or on_card[(sweep.best_config["WG"],
+                                    sweep.best_config["TS"])] != t_min:
+                    raise AssertionError(
+                        f"minimum size {size} at GMT {wave.GMT}: explorer "
+                        f"{res.t_min}, sweep {sweep.t_min}, kernel {t_min}")
+
+            # (d) phase 9's drains re-priced (host only)
+            repriced(served["measured"], served["tunables"],
+                     served["picks"], fitted)
+
+            # (e) the modeled-vs-measured trajectory, phase 4's shapes
+            traj_path = Path(tmp) / "trajectory.json"
+            run = run_trajectory(
+                [("tuned_reduction-2^28", ReductionTunable(REDUCE_N)),
+                 ("matmul_tuned-bf16-8192", MatmulTunable(*MM_BF16))],
+                path=traj_path)
+            torch.cuda.synchronize()
+            launches = [c.launches for c in counters]   # the path ends here
+            emit("calibrate", part="trajectory",
+                 calibration=run["calibration"], platform=run["platform"],
+                 tunables=run["tunables"])
+            if len(run["tunables"]) != 2 or \
+                    run["calibration"] != fitted.calibration_hash():
+                raise AssertionError(f"trajectory: {run}")
+            torch.cuda.empty_cache()
+
+            # (f) phase 7(b)'s drain, observed
+            api, params = model["api"], model["params"]
+            st7 = model["shared_trace"]
+
+            def shared_drain(obs, scheduler):
+                server = Server(api, params, **PAGED, share_prefix=True,
+                                scheduler=scheduler, obs=obs)
+                with torch.inference_mode():
+                    run = two_waves(server, st7["prompts"], MAX_NEW)
+                return server, run
+
+            def unobserved():
+                # the same drain with obs=None, beside (f) and (g) in this
+                # phase: 7(b)'s wall time is from another point of the run
+                server, run = shared_drain(None, "prefix")
+                if [r.out for r in run["reqs"]] != st7["out"]:
+                    raise AssertionError("the unobserved drain's tokens "
+                                         "moved since phase 7(b)")
+                del server
+                return run["wall_s"]
+
+            walls = [unobserved()]
+            obs = Observability(trace=True, metrics=True, monitor=True)
+            sched = TracingScheduler(make_scheduler("prefix"),
+                                     recorder=obs.recorder)
+            server, run_f = shared_drain(obs, sched)
+            out_f = [r.out for r in run_f["reqs"]]
+            doc_path = Path(tmp) / "observed.json"
+            doc = obs.export(str(doc_path))
+            problems = validate_trace(doc)
+            cli = {}
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+            for cmd in ("check", "summarize"):
+                proc = subprocess.run(
+                    [sys.executable, "-m", "repro_torch.obs", cmd,
+                     str(doc_path)], capture_output=True, text=True, env=env,
+                    timeout=300)
+                cli[cmd] = {"rc": proc.returncode,
+                            "out": proc.stdout.splitlines()[:24]}
+            mon = doc["monitor"]
+            decisions = sum(d is not None for _, d in sched.trace)
+            emit("observe", part="observed_drain", **PAGED,
+                 requests=PAGED_REQUESTS, ticks=server.ticks,
+                 ticks_unobserved=st7["ticks"], wall_s=run_f["wall_s"],
+                 wall_s_unobserved_before=walls[0],
+                 wall_s_phase7b=st7["wall_s"],
+                 tokens_equal=out_f == st7["out"],
+                 events=len(doc["traceEvents"]), trace_problems=problems,
+                 monitor={k: mon[k] for k in ("status", "ops_checked",
+                                              "polls", "truncated")},
+                 scheduler=sched.kind, decisions=len(sched.trace),
+                 decisions_made=decisions, cli=cli)
+            if out_f != st7["out"] or problems or \
+                    mon["status"] != "accepted" or mon["ops_checked"] <= 0 \
+                    or any(v["rc"] for v in cli.values()) or \
+                    not sched.trace or decisions <= 0:
+                raise AssertionError("the observed drain failed its checks")
+            del server, obs, sched, doc
+            torch.cuda.empty_cache()
+
+            # (g) the same drain, profiled
+            obs = Observability(trace=False, metrics=False, profile=True)
+            server, run_g = shared_drain(obs, "prefix")
+            report = obs.profiler.report()
+            walls.append(unobserved())
+            emit("observe", part="profiled_drain", ticks=server.ticks,
+                 wall_s=run_g["wall_s"], wall_s_observed=run_f["wall_s"],
+                 wall_s_unobserved=walls,
+                 tokens_equal=[r.out for r in run_g["reqs"]] == st7["out"],
+                 warmup_ticks=obs.profiler.warmup_ticks, phases=report,
+                 card=smi)
+            if not {"prefill", "decode", "host"} <= set(report) or \
+                    [r.out for r in run_g["reqs"]] != st7["out"]:
+                raise AssertionError(f"profiled drain: {sorted(report)}")
+            del server, obs
+            torch.cuda.empty_cache()
+
+            # (h) the serving driver with the new flags, as a subprocess
+            argv = OBSERVE_DRIVER + ["--trace",
+                                     str(Path(tmp) / "driver_trace.json")]
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                       REPRO_TORCH_TUNE_CACHE=str(Path(tmp) / "driver.json"))
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m",
+                                   "repro_torch.launch.serve", *argv],
+                                  capture_output=True, text=True, env=env,
+                                  timeout=600)
+            lines = proc.stdout.splitlines()
+            want = ("scheduler: policy=priority", "trace: ",
+                    "conformance monitor: accepted", "phase profile (",
+                    "# TYPE serve_retired counter")
+            found = {w: any(w in ln for ln in lines) for w in want}
+            emit("observe", part="driver", argv=argv, rc=proc.returncode,
+                 seconds=time.perf_counter() - t0,
+                 output=[ln for ln in lines if not ln.startswith("#")
+                         and not ln.startswith("serve_")][:40],
+                 prometheus_lines=sum(ln.startswith("serve_")
+                                      for ln in lines),
+                 found=found, stderr=proc.stderr[-2000:])
+            if proc.returncode != 0 or not all(found.values()):
+                raise AssertionError(f"the serving driver: rc "
+                                     f"{proc.returncode}, {found}")
+    finally:
+        set_platform_spec(prev_spec)
+        set_default_cache(prev_cache)
+        if prev_env is None:
+            os.environ.pop("REPRO_TORCH_PLATFORM_SPEC", None)
+        else:
+            os.environ["REPRO_TORCH_PLATFORM_SPEC"] = prev_env
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t_phase
+    emit("calibrate", part="phase", seconds=phase_s)
+    return {"launches": launches, "fitted": fitted}
 
 
 def main() -> int:
@@ -1856,10 +2256,18 @@ def main() -> int:
     served = serve_tune(dev, counters, model)
     emit("kernels", phase_of="serve_tune", launches=dict(zip(
         names, served["launches"])))
-    for kernel, n, m, k, t in zip(names, model["launches"],
-                                  model["paged_launches"],
-                                  checked["launches"], served["launches"]):
-        launches[kernel] += n + m + k + t
+    # 10. the card calibrated, the Server observed ------------------------
+    observed = calibrate_and_observe(dev, counters, model, served)
+    emit("kernels", phase_of="calibrate", launches=dict(zip(
+        names, observed["launches"])))
+    idle = [k for k in ("sweep_eval", "tuned_reduction", "matmul_tuned")
+            if observed["launches"][names.index(k)] <= 0]
+    if idle:
+        raise AssertionError(f"never launched in phase 10: {idle}")
+    for kernel, *counts in zip(names, model["launches"],
+                               model["paged_launches"], checked["launches"],
+                               served["launches"], observed["launches"]):
+        launches[kernel] += sum(counts)
 
     sources = {"tuned_reduction": ("src/repro_torch/csrc/tuned_reduction.cu",
                                    "src/repro/kernels/tuned_reduction/kernel.py:76"),

@@ -7,18 +7,21 @@ the single source of those constants — peak FLOP/s, memory bandwidth,
 interconnect bandwidth, dispatch latency — either the **defaults**
 (NVIDIA H100 SXM data-sheet numbers, the ones
 :mod:`repro_torch.kernels.common` states for the kernels' bounds) or
-**calibrated** values persisted as a schema-versioned JSON artifact.
-The probes that fit them are not ported yet (ROADMAP queue 1, item 10).
+**calibrated** values fitted by the probes of
+:mod:`repro_torch.calibrate.probes` and persisted as a schema-versioned
+JSON artifact.
 
 Not to be confused with :class:`repro_torch.core.platform.PlatformSpec`
 (the abstract Promela NP/GMT platform): that one parameterizes the
 *process model*, this one carries the *physical device* numbers that the
-serving cost models divide by.
+serving cost models divide by.  :func:`~repro_torch.core.wave_model.\
+gmt_from_spec` bridges the two: it derives the abstract GMT ratio from a
+measured spec.
 
 Resolution order (:func:`get_platform_spec`):
 
-1. an explicitly installed spec (:func:`set_platform_spec` — tests and
-   benches use this),
+1. an explicitly installed spec (:func:`set_platform_spec` — tests,
+   benches and the CLI use this),
 2. a calibration artifact on disk (``$REPRO_TORCH_PLATFORM_SPEC`` or
    ``~/.cache/repro_torch/platform_spec.json``; the reference's own
    artifact and variable are never read) whose schema is current and
@@ -83,8 +86,8 @@ class PlatformSpec:
     link_bw: float = 25e9        # bytes/s per NVLink 4 link, each way
     links: int = 18              # NVLink 4 links per H100 SXM
     dci_bw: float = 50e9         # bytes/s to another node, per device
-    # a modeling assumption, not a measurement: the host's cost of one
-    # dispatch (the probe that fits it is ROADMAP item 10)
+    # the default is a modeling assumption, not a measurement: the host's
+    # cost of one dispatch (probes.dispatch_latency_sweep fits it)
     dispatch_us: float = 50.0
     source: str = "default"      # "default" | "calibrated"
     backend: str = ""            # "cuda" or "cpu": where the probes ran

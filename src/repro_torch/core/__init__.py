@@ -25,7 +25,7 @@ from .properties import NonTermination, OverTime, trace_satisfies
 from .search_space import Param, SearchSpace, powers_of_two, wg_ts_space
 from .swarm import swarm_search
 from .sweep import cex_oracle, sweep_times, sweep_times_torch
-from .wave_model import WaveParams, model_time, model_time_torch
+from .wave_model import WaveParams, gmt_from_spec, model_time, model_time_torch
 
 __all__ = [
     "TuneResult", "find_minimal_time",
@@ -33,5 +33,5 @@ __all__ = [
     "build_model", "NonTermination", "OverTime", "trace_satisfies", "Param",
     "SearchSpace", "powers_of_two", "wg_ts_space", "swarm_search",
     "cex_oracle", "sweep_times", "sweep_times_torch", "WaveParams",
-    "model_time", "model_time_torch",
+    "gmt_from_spec", "model_time", "model_time_torch",
 ]

@@ -51,6 +51,35 @@ class WaveParams:
         n_warps = max(1, -(-resident // self.warp))
         return max(1, -(-self.GMT // n_warps))
 
+    @classmethod
+    def from_platform(cls, size: int, *, spec=None, el_bytes: int = 4,
+                      **kw) -> "WaveParams":
+        """Wave parameters whose GMT ratio is derived from a MEASURED
+        platform (:func:`gmt_from_spec`) instead of the default 4 — the
+        bridge from :class:`repro_torch.calibrate.PlatformSpec` (physical
+        constants) to the abstract process model's memory ratio."""
+
+        return cls(size=size, GMT=gmt_from_spec(spec, el_bytes=el_bytes),
+                   **kw)
+
+
+def gmt_from_spec(spec=None, *, el_bytes: int = 4) -> int:
+    """The abstract GMT ratio (global-memory time per unit compute)
+    implied by a measured platform: how many element-sized FLOPs the
+    device completes in the time one element streams from main memory —
+    ``peak_flops * el_bytes / hbm_bw``, floored at 1.  ``spec=None``
+    resolves the active :func:`repro_torch.calibrate.get_platform_spec`,
+    so a calibration artifact reshapes the abstract platform too.
+
+    On the H100 that ratio is about 1,000-1,200 where the default is 4,
+    so model times grow ~250x: the int32 sweep kernel holds them only on
+    small lattices (``size * GMT`` must stay under 2^31)."""
+
+    if spec is None:
+        from ..calibrate.spec import get_platform_spec
+        spec = get_platform_spec()
+    return max(1, round(spec.peak_flops * el_bytes / spec.hbm_bw))
+
 
 def _group_structure(size: int, WG: int, TS: int):
     items = size // TS
@@ -184,4 +213,4 @@ def model_time_torch(p: WaveParams, WG, TS, *,
     return torch.where(has_ts & (items >= 1), t, torch.iinfo(dtype).max)
 
 
-__all__ = ["WaveParams", "model_time", "model_time_torch"]
+__all__ = ["WaveParams", "gmt_from_spec", "model_time", "model_time_torch"]

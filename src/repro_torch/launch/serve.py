@@ -11,6 +11,12 @@ Example (qwen1.5-4b at full width, random weights from ``--seed``):
 ``--preset smoke`` runs the architecture's reduced variant; ``--device
 cpu`` runs the plain PyTorch versions on the host.
 
+``--scheduler fcfs|priority|prefix`` picks the serving policy;
+``--trace OUT.json``, ``--metrics`` and ``--profile`` attach a
+:class:`~repro_torch.obs.Observability` bundle (with ``--paged``, its
+conformance monitor checks the allocator's ops) and print its trace,
+monitor, phase-profile and Prometheus lines after the drain.
+
 ``--tune-batch``, ``--tune-prefill``, ``--tune-page``, ``--tune-spec`` and
 ``--tune-scheduler`` pick the slot count, the prefill chunk, the KV page
 size, the speculation policy and the scheduling policy through a
@@ -29,6 +35,7 @@ import torch
 
 from ..configs import get_config
 from ..models import build_model
+from ..runtime.scheduler import SCHEDULER_KINDS
 from ..runtime.serve import Server
 from ..runtime.speculate import DRAFTER_KINDS, spec_depth_tunable
 from ..runtime.tunables import (decode_batch_tunable, kv_page_tunable,
@@ -54,6 +61,11 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="pool size in pages (default: full per-slot "
                          "backing, batch * ceil(context/page))")
+    ap.add_argument("--scheduler", choices=list(SCHEDULER_KINDS),
+                    default=None,
+                    help="serving policy: fcfs (default), priority "
+                         "(SLO classes, preemptive), or prefix "
+                         "(prefix-affinity admission)")
     ap.add_argument("--share-prefix", action="store_true",
                     help="copy-on-write KV prefix sharing across slots "
                          "(implies --paged)")
@@ -63,6 +75,19 @@ def main(argv=None) -> None:
                          "rollout)")
     ap.add_argument("--spec-depth", type=int, default=4,
                     help="draft tokens verified per speculative tick")
+    ap.add_argument("--trace", metavar="OUT.json", default=None,
+                    help="record lifecycle/tick spans and write the "
+                         "repro.obs/trace document (Perfetto-loadable) "
+                         "here; with --paged the online conformance "
+                         "monitor validates the allocator op stream")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the drain's metrics registry as "
+                         "Prometheus text exposition")
+    ap.add_argument("--profile", action="store_true",
+                    help="per-tick phase breakdown (prefill vs decode "
+                         "vs speculate vs COW vs host); synchronizes "
+                         "the device after each phase, so the drain "
+                         "itself runs slower")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda:0",
                     help="cuda:0 (default) or cpu")
@@ -150,7 +175,7 @@ def main(argv=None) -> None:
         picked = run_job(ts, "spec", None)
         spec_depth = int(picked["depth"])
         speculate = str(picked["drafter"])
-    scheduler = None
+    scheduler = args.scheduler
     share_prefix = args.share_prefix
     if args.tune_scheduler:
         # policy differences are what the modeled cost can only rank,
@@ -167,11 +192,17 @@ def main(argv=None) -> None:
         scheduler = str(picked["policy"])
         share_prefix = share_prefix or scheduler == "prefix"
 
+    obs = None
+    if args.trace or args.metrics or args.profile:
+        from ..obs import Observability
+        obs = Observability(trace=args.trace is not None or args.profile,
+                            metrics=True, profile=args.profile,
+                            monitor=paged)
     server = Server(api, params, batch=batch, context=args.context,
                     prefill_chunk=prefill_chunk, paged=paged,
                     page_size=page_size, kv_pages=args.kv_pages,
                     scheduler=scheduler, share_prefix=share_prefix,
-                    speculate=speculate, spec_depth=spec_depth)
+                    speculate=speculate, spec_depth=spec_depth, obs=obs)
 
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
@@ -208,6 +239,19 @@ def main(argv=None) -> None:
               f"{st['spec_ticks']:.0f} speculative ticks")
     for r in done[:3]:
         print(f"  req{r.rid}: prompt={r.prompt[:4]}... out={r.out}")
+    if obs is not None:
+        doc = obs.export(args.trace)
+        if args.trace:
+            print(f"  trace: {len(doc['traceEvents'])} events -> "
+                  f"{args.trace} (open in https://ui.perfetto.dev)")
+        if obs.monitor is not None:
+            mon = doc["monitor"]
+            print(f"  conformance monitor: {mon['status']} "
+                  f"({mon['ops_checked']} allocator ops checked)")
+        if args.profile and obs.profiler is not None:
+            print(obs.profiler.format())
+        if args.metrics and obs.registry is not None:
+            print(obs.registry.to_prometheus(), end="")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ harnesses, and the seeded traffic traces the scheduler is tuned on."""
 
 from .kv import NO_PAGE, PagedKVAllocator, PagedKVSpec
 from .scheduler import (SCHEDULER_KINDS, FCFSScheduler, PrefixAffinityScheduler,
-                        PriorityScheduler, Scheduler, make_scheduler)
+                        PriorityScheduler, Scheduler, TracingScheduler,
+                        make_scheduler)
 from .serve import Request, Server
 from .speculate import (DRAFTER_KINDS, DraftModelDrafter, Drafter,
                         NGramDrafter, SpecDepthTunable, choose_spec_depth,
@@ -22,7 +23,8 @@ from .workload import (SLO_CLASSES, TraceConfig, TraceRequest, drive_trace,
 
 __all__ = ["Server", "Request", "Scheduler", "make_scheduler",
            "FCFSScheduler", "PriorityScheduler", "PrefixAffinityScheduler",
-           "SCHEDULER_KINDS", "NO_PAGE", "PagedKVSpec", "PagedKVAllocator",
+           "TracingScheduler", "SCHEDULER_KINDS", "NO_PAGE", "PagedKVSpec",
+           "PagedKVAllocator",
            "DRAFTER_KINDS", "Drafter", "NGramDrafter", "DraftModelDrafter",
            "make_drafter", "SpecDepthTunable", "spec_depth_tunable",
            "choose_spec_depth",

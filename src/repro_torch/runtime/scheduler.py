@@ -258,8 +258,51 @@ class PrefixAffinityScheduler:
         return None
 
 
+class TracingScheduler:
+    """Decorator policy: forwards every hook to ``inner`` and records
+    the decisions as ``(hook, decision)`` tuples on :attr:`trace` — the
+    scheduler-side half of the shared trace vocabulary
+    (:mod:`repro_torch.verify` replays server traces against the abstract
+    model; the allocator side is the ``trace`` hook on
+    :class:`~repro_torch.runtime.kv.PagedKVAllocator`)."""
+
+    def __init__(self, inner: Scheduler, recorder=None):
+        self.inner = inner
+        self.trace: list[tuple[str, int | None]] = []
+        # optional repro_torch.obs TraceRecorder: non-None decisions also
+        # land as instants on the engine track, so a Perfetto timeline
+        # shows WHY a slot changed hands next to the tick that did it
+        self.recorder = recorder
+
+    @property
+    def kind(self) -> str:
+        return f"traced-{self.inner.kind}"
+
+    def _record(self, hook: str, out: int | None,
+                server: "Server") -> None:
+        self.trace.append((hook, out))
+        if self.recorder is not None and out is not None:
+            self.recorder.instant(f"sched.{hook}", tick=server.ticks,
+                                  decision=out, policy=self.inner.kind)
+
+    def pick(self, server: "Server") -> int | None:
+        out = self.inner.pick(server)
+        self._record("pick", out, server)
+        return out
+
+    def victim(self, server: "Server") -> int | None:
+        out = self.inner.victim(server)
+        self._record("victim", out, server)
+        return out
+
+    def preempt_for(self, server: "Server") -> int | None:
+        out = self.inner.preempt_for(server)
+        self._record("preempt_for", out, server)
+        return out
+
+
 SCHEDULER_KINDS: tuple[str, ...] = tuple(sorted(_REGISTRY))
 
 __all__ = ["Scheduler", "FCFSScheduler", "PriorityScheduler",
-           "PrefixAffinityScheduler",
+           "PrefixAffinityScheduler", "TracingScheduler",
            "register_scheduler", "make_scheduler", "SCHEDULER_KINDS"]

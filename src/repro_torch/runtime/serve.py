@@ -43,8 +43,12 @@ greedy stream, up to floating-point argmax ties (the commit chunk
 reduces in another order than one-token decodes; float32 params keep
 the real logit gaps).
 
-Not ported yet: ``obs=`` (ROADMAP queue 1, item 20) raises
-``ValueError``.
+``obs=`` takes a :class:`~repro_torch.obs.Observability` bundle: the
+engine calls its lifecycle, tick and phase hooks at the reference's
+sites, each behind ``if self.obs is not None``.  The hooks record host
+state only, so an observed drain gives the unobserved drain's tokens;
+``profile=True`` synchronizes the cache tensors' devices after each
+phase (:mod:`repro_torch.obs.profile`).
 """
 
 from __future__ import annotations
@@ -99,9 +103,6 @@ class Server:
                  speculate: Any = None, spec_depth: int = 4,
                  scheduler: str | Scheduler | None = None,
                  share_prefix: bool = False, obs: Any = None):
-        if obs is not None:
-            raise ValueError("obs= is not ported yet (ROADMAP queue 1, "
-                             "item 20)")
         self.share_prefix = bool(share_prefix)
         if self.share_prefix and not paged:
             raise ValueError(
@@ -158,6 +159,13 @@ class Server:
         self.cow_copies = 0         # pages copied by write-triggered COW
         self.queue: list[Request] = []
         self.completed: list[Request] = []
+        # observability is strictly additive: every hook below is guarded
+        # by `if self.obs is not None` and records host state the engine
+        # already holds, so obs=None drains are untouched and observed
+        # drains give the same tokens
+        self.obs = obs
+        if obs is not None:
+            obs.attach(self)
 
     # -- API ----------------------------------------------------------------
     def submit(self, prompt: list[int], max_new: int, *,
@@ -184,6 +192,8 @@ class Server:
                       prompt=prompt, max_new=max_new, slo=slo,
                       deadline=deadline)
         self.queue.append(req)
+        if self.obs is not None:
+            self.obs.on_submit(self, req)
         return req
 
     # -- scheduler-facing queries (the policy contract) ---------------------
@@ -278,6 +288,8 @@ class Server:
                 self.shared_tokens += shared
         self.slot_pos[slot] = start
         req._cursor = start  # type: ignore[attr-defined]
+        if self.obs is not None:
+            self.obs.on_admit(self, req, slot, start)
 
     def _backed_prefix(self, slot: int) -> int:
         """Tokens from position 0 whose pages ``slot`` still maps (the SWA
@@ -316,11 +328,12 @@ class Server:
             return None, 0
         return best, best_len
 
-    def _preempt(self, slot: int) -> None:
+    def _preempt(self, slot: int, reason: str = "slo-preempt") -> None:
         """Evict ``slot`` mid-flight: its pages released (refcounts
         decremented; pages shared with other slots survive), the request
         back at the FRONT of the queue with prompt and generated tokens
-        intact."""
+        intact.  ``reason`` (policy preemption or page-OOM defer) is for
+        observability only."""
 
         req = self.slot_req[slot]
         req._cursor = 0  # type: ignore[attr-defined]
@@ -330,6 +343,8 @@ class Server:
             self.alloc.release(slot)
         self.slot_req[slot] = None
         self.slot_pos[slot] = 0
+        if self.obs is not None:
+            self.obs.on_preempt(self, req, slot, reason)
 
     def _evict_for(self, slot: int) -> int | None:
         """Page-OOM backpressure: the policy names a victim, the engine
@@ -337,7 +352,7 @@ class Server:
 
         victim = self.scheduler.victim(self)
         if victim is not None:
-            self._preempt(victim)
+            self._preempt(victim, reason="oom-defer")
             self.deferrals += 1
         return victim
 
@@ -397,6 +412,8 @@ class Server:
             self.slot_req[slot] = None
             if self.paged:
                 self.alloc.release(slot)
+            if self.obs is not None:
+                self.obs.on_retire(self, req, slot)
 
     def kv_stats(self) -> dict[str, float]:
         """Cache occupancy snapshot: live tokens against reserved
@@ -511,7 +528,13 @@ class Server:
             if self.share_prefix and self.slot_req[s] is req:
                 cow_pairs.extend(self._cow_range(s, pos, end))
         if cow_pairs:
+            ob = self.obs
+            t0 = (ob.phase_begin("cow_copy", self.ticks)
+                  if ob is not None else 0.0)
             self._copy_pages(cow_pairs)
+            if ob is not None:
+                ob.phase_end("cow_copy", self.ticks, t0, sync=self.state,
+                             pages=len(cow_pairs))
         self.peak_used_pages = max(self.peak_used_pages,
                                    self.alloc.used_pages)
 
@@ -535,6 +558,9 @@ class Server:
             return 0
         self.ticks += 1
         self.slot_ticks += len(active)
+        ob = self.obs
+        if ob is not None:
+            ob.on_tick_begin(self, self.ticks)
         decode = [s for s in active if self._phase(s) == "decode"]
         spec = [s for s in decode if s in drafts]
         decode = [s for s in decode if s not in drafts]
@@ -543,6 +569,8 @@ class Server:
                  if self.paged else ())
 
         if decode:
+            if ob is not None:
+                t0 = ob.phase_begin("decode", self.ticks)
             tokens = np.zeros((self.batch, 1), np.int32)
             mask = np.zeros(self.batch, bool)
             for s in decode:
@@ -560,11 +588,21 @@ class Server:
                 req.out.append(int(nxt[s]))
                 self.tokens_generated += 1
                 self._retire_if_done(s)
+            if ob is not None:
+                ob.phase_end("decode", self.ticks, t0, sync=self.state,
+                             slots=len(decode))
 
         if spec:
+            if ob is not None:
+                t0 = ob.phase_begin("speculate", self.ticks)
             self._speculate(spec, drafts, extra)
+            if ob is not None:
+                ob.phase_end("speculate", self.ticks, t0, sync=self.state,
+                             slots=len(spec))
 
         if prefill:
+            if ob is not None:
+                t0 = ob.phase_begin("prefill", self.ticks)
             T = self.prefill_chunk
             tokens = np.zeros((self.batch, T), np.int32)
             lengths = np.zeros(self.batch, np.int32)
@@ -592,6 +630,9 @@ class Server:
                     req.out.append(int(nxt[s]))
                     self.tokens_generated += 1
                     self._retire_if_done(s)
+            if ob is not None:
+                ob.phase_end("prefill", self.ticks, t0, sync=self.state,
+                             slots=len(prefill))
 
         # sliding-window reclamation: pages whose positions all fell out
         # of the window are never attended again; the next tick's
@@ -601,6 +642,9 @@ class Server:
             for s in range(self.batch):
                 if self.slot_req[s] is not None:
                     self.alloc.trim(s, max(0, int(self.slot_pos[s]) - w + 1))
+        if ob is not None:
+            ob.on_tick_end(self, self.ticks, n_decode=len(decode),
+                           n_spec=len(spec), n_prefill=len(prefill))
         return len(active)
 
     def _speculate(self, spec: list[int], drafts: dict[int, list[int]],

@@ -74,7 +74,8 @@ def timed_server_drain(api, params, *, batch: int, context: int,
                        prompts, max_new: int, prefill_chunk: int = 32,
                        paged: bool = False, page_size: int = 16,
                        kv_pages: int | None = None, speculate: Any = None,
-                       spec_depth: int = 4, registry: Any = None,
+                       spec_depth: int = 4, obs: Any = None,
+                       registry: Any = None,
                        stats_out: dict | None = None, warmup: int = 1,
                        iters: int = 1) -> float:
     """Median microseconds to drain ``prompts`` (a list of token lists)
@@ -96,7 +97,10 @@ def timed_server_drain(api, params, *, batch: int, context: int,
     The last drain's ``Server.stats`` snapshot is published into
     ``registry`` (a :class:`~repro_torch.obs.metrics.MetricsRegistry`)
     as ``serve.``-prefixed gauges; ``stats_out`` (a dict) is rebuilt
-    FROM the registry, so both views carry identical keys and values."""
+    FROM the registry, so both views carry identical keys and values.
+    ``obs`` (a :class:`~repro_torch.obs.Observability`) is attached to
+    the LAST drain's ``Server`` only, as :func:`timed_trace_drain` does:
+    a bundle is per-``Server`` state."""
 
     from ..kernels.common import time_fn
     from ..obs.metrics import MetricsRegistry
@@ -104,13 +108,18 @@ def timed_server_drain(api, params, *, batch: int, context: int,
     device = _params_device(params)
     prompts = [list(p) for p in prompts]
     reg = registry if registry is not None else MetricsRegistry()
+    total = max(0, warmup) + max(1, iters)   # time_fn's call count
+    calls = 0
 
     def drain() -> None:
+        nonlocal calls
+        calls += 1
         with torch.inference_mode():
             srv = Server(api, params, batch=batch, context=context,
                          prefill_chunk=prefill_chunk, paged=paged,
                          page_size=page_size, kv_pages=kv_pages,
-                         speculate=speculate, spec_depth=spec_depth)
+                         speculate=speculate, spec_depth=spec_depth,
+                         obs=obs if calls == total else None)
             for prompt in prompts:
                 srv.submit(prompt, max_new=max_new)
             srv.run_until_drained()
@@ -142,8 +151,7 @@ def timed_trace_drain(api, params, trace, *, batch: int, context: int,
     as ``traffic.``-prefixed gauges; ``stats_out`` is rebuilt FROM the
     registry (plus the non-scalar ``records`` passthrough, from which
     callers read each request's tokens).  ``obs`` goes to the LAST drain
-    only, as in the reference; the port's ``Server`` does not take one
-    yet (ROADMAP queue 1, item 20), so passing one raises there."""
+    only, as in the reference."""
 
     from ..kernels.common import time_fn
     from ..obs.metrics import MetricsRegistry

@@ -128,15 +128,21 @@ def drive_trace(server, trace: list[TraceRequest], *,
     The per-request bookkeeping is TRACE EVENTS, not a private dict:
     the driver emits ``workload.submitted`` / ``workload.retired``
     instants (driver-clock arrival/finish in their args) into
-    ``recorder`` (a :class:`~repro_torch.obs.trace.TraceRecorder`, or a
-    local one when none is given) and :func:`records_from_events`
-    rebuilds the records from them.  One source of truth: the numbers
-    :func:`summarize` reports are exactly the numbers a Perfetto view of
-    the trace shows.  (The reference also records into a ``Server``'s
-    attached observability bundle; the port's ``Server`` has none yet.)"""
+    ``recorder`` (a :class:`~repro_torch.obs.trace.TraceRecorder`), else
+    into the server's attached
+    :class:`~repro_torch.obs.observe.Observability` recorder, else into
+    a local one, and :func:`records_from_events` rebuilds the records
+    from them.  One source of truth: the numbers :func:`summarize`
+    reports are exactly the numbers a Perfetto view of the trace
+    shows."""
 
     from ..obs.trace import TraceRecorder
-    rec = recorder if recorder is not None else TraceRecorder()
+    rec = recorder
+    if rec is None:
+        obs = getattr(server, "obs", None)
+        rec = obs.recorder if obs is not None else None
+    if rec is None:
+        rec = TraceRecorder()
     pending = sorted(trace, key=lambda r: (r.arrival, r.rid))
     nxt = 0
     clock = 0

@@ -12,6 +12,7 @@ a summary :class:`PlanReport`.
 Spec format (JSON or dict)::
 
     {"name": "warmup",
+     "calibrate": true,          # resolve a platform calibration first
      "jobs": [
        {"tunable": "platform.minimum",
         "params": {"size": 1048576, "NP": 128, "GMT": 16, "L": 8},
@@ -27,6 +28,8 @@ Spec format (JSON or dict)::
 ``serve.decode_batch``, ``serve.prefill_chunk``, ``serve.kv_page``,
 ``serve.spec_depth`` and ``serve.scheduler`` are pre-registered.
 ``grid`` expands list-valued entries into the cartesian product of jobs.
+``"calibrate": true`` (:class:`TuningPlan`'s ``require_calibration``)
+resolves a platform calibration before any job.
 """
 
 from __future__ import annotations
@@ -199,9 +202,13 @@ class TuningPlan:
     """A declarative batch of tuning jobs; see the module docstring."""
 
     def __init__(self, jobs: Sequence[TuningJob] | None = None, *,
-                 name: str = "plan"):
+                 name: str = "plan", require_calibration: bool = False):
         self.name = name
         self.jobs: list[TuningJob] = list(jobs or [])
+        # True: run() resolves a platform calibration (load-or-probe via
+        # repro_torch.calibrate.ensure_calibrated) BEFORE any job, so
+        # jobs tune, and cache-fingerprint, against measured constants
+        self.require_calibration = require_calibration
 
     def add(self, tunable_or_factory, engine: str = "auto", *,
             label: str = "", force: bool = False,
@@ -233,11 +240,8 @@ class TuningPlan:
             spec = json.loads(text)
         if not isinstance(spec, Mapping):
             raise ValueError("plan spec must be a mapping with a 'jobs' list")
-        if spec.get("calibrate"):
-            raise ValueError("plan key 'calibrate' is not supported by the "
-                             "port yet (its cost models use data-sheet "
-                             "constants)")
-        plan = cls(name=str(spec.get("name", "plan")))
+        plan = cls(name=str(spec.get("name", "plan")),
+                   require_calibration=bool(spec.get("calibrate", False)))
         for i, jspec in enumerate(spec.get("jobs", [])):
             for params, suffix in _expand_grid(jspec):
                 name = jspec.get("tunable")
@@ -273,6 +277,15 @@ class TuningPlan:
         store = default_cache() if cache == "default" else cache
         report = PlanReport(plan=self.name)
         say = progress or (lambda line: None)
+
+        if self.require_calibration:
+            # before ANY job (key resolution included): cost models and
+            # cache fingerprints must see the calibrated constants
+            from ..calibrate import ensure_calibrated
+            spec, probed = ensure_calibrated(quick=True)
+            say(f"[calibrate] {'probed' if probed else 'loaded'} "
+                f"{spec.backend}/{spec.device_kind} "
+                f"hash={spec.calibration_hash()}")
 
         def run_one(i: int, job: TuningJob) -> JobResult:
             t0 = time.perf_counter()

@@ -218,9 +218,9 @@ class TraceChecker:
     The checker walks the abstract model alongside the real op stream —
     each record must be legal at the model's current state and return
     exactly what the model returns — which is what lets the online
-    monitor (the reference's ``repro.obs.monitor``; ROADMAP queue 1,
-    item 20) validate a LIVE drain without
-    re-scanning the trace prefix every tick.  :meth:`state_divergence`
+    monitor (:class:`repro_torch.obs.monitor.ConformanceMonitor`)
+    validate a LIVE drain without re-scanning the trace prefix every
+    tick.  :meth:`state_divergence`
     adds the stronger check an offline trace cannot make: compare the
     real allocator's projection against the tracked model state, which
     catches mutations whose per-op returns still agree (leaked

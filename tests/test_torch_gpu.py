@@ -681,3 +681,71 @@ def test_choose_batch_measures_drains_on_the_card_then_hits(cuda, tmp_path):
     assert all(c["measured"] > 0 for c in res.stats["candidates"])
     again, res2 = choose_batch(api, **kw)
     assert again == batch and res2.stats["cache"] == "hit"
+
+
+def test_phase_profiler_syncs_the_device_of_a_cuda_tensor(cuda,
+                                                          monkeypatch):
+    """The profiler waits for every CUDA device among a phase's tensors
+    (nested dicts, lists and tuples) and for nothing else."""
+
+    from repro_torch.obs import PhaseProfiler
+    from repro_torch.obs.profile import sync_devices
+
+    synced = []
+    real = torch.cuda.synchronize
+
+    def spy(device=None):
+        synced.append(torch.device(device))
+        real(device)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", spy)
+    x = torch.ones(1 << 20, device=cuda)
+    sync_devices({"a": [x, (torch.zeros(2),)], "b": {"c": x * 2}})
+    assert synced == [cuda]
+    prof = PhaseProfiler(warmup_ticks=0)
+    prof.tick_begin()
+    t0 = prof.phase_begin()
+    y = x @ x
+    prof.phase_end("decode", t0, sync={"out": y})
+    prof.tick_end()
+    assert synced == [cuda, cuda]
+    assert prof.report()["decode"]["count"] == 1.0
+
+
+def test_dispatch_probe_times_the_host_clock(cuda, monkeypatch):
+    """Each dispatch sample is host time from the launch to the end of
+    ``torch.cuda.synchronize``: no CUDA event is recorded, and every
+    sample covers at least one synchronize."""
+
+    from repro_torch.calibrate.probes import dispatch_latency_sweep
+
+    def no_events(*a, **k):
+        raise AssertionError("the dispatch probe must not time with events")
+
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "Event", no_events)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda d=None: (syncs.append(d), real(d)))
+    samples = dispatch_latency_sweep(9, warmup=2)
+    assert len(samples) == 9 and len(syncs) == 10
+    assert all(1.0 < s < 10_000.0 for s in samples)
+
+
+def test_triad_probe_launches_one_kernel(cuda):
+    """The triad is one kernel a call (eager ``x + 1.5 * y`` is two)."""
+
+    from torch.profiler import ProfilerActivity, profile
+    n = 1 << 22
+    x = torch.ones(n, device=cuda)
+    y = torch.ones(n, device=cuda)
+    z = torch.empty_like(x)
+    torch.add(x, y, alpha=1.5, out=z)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.add(x, y, alpha=1.5, out=z)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert torch.equal(z, torch.full_like(z, 2.5))

@@ -34,6 +34,7 @@ from repro_torch.interop import (decode_state_from_jax, from_numpy,  # noqa: E40
                                  params_from_jax, to_numpy)
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.obs import Observability  # noqa: E402
 from repro_torch.runtime import Server  # noqa: E402
 from repro_torch.runtime.kv import (NO_PAGE, PagedKVAllocator,  # noqa: E402
                                     PagedKVSpec)
@@ -820,5 +821,8 @@ def test_share_prefix_refusals(smollm):
     encdec = types.SimpleNamespace(cfg=api.cfg.replace(encoder_layers=2))
     with pytest.raises(ValueError, match="encoder-decoder"):
         Server(encdec, p, batch=2, context=48, paged=True, share_prefix=True)
-    with pytest.raises(ValueError, match="not ported yet"):
-        Server(api, p, batch=1, context=16, obs=object())
+    # the conformance monitor checks the paged allocator: contiguous
+    # rings have none to check
+    with pytest.raises(ValueError, match="monitor=True needs Server"):
+        Server(api, p, batch=1, context=16,
+               obs=Observability(monitor=True))

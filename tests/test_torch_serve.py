@@ -22,6 +22,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.interop import params_from_jax  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.obs import Observability  # noqa: E402
 from repro_torch.runtime import Server  # noqa: E402
 from repro_torch.tune import TuningCache, set_default_cache  # noqa: E402
 
@@ -142,11 +143,15 @@ def test_submit_rejections():
     assert req.done and len(req.prompt) + len(req.out) <= 16
 
 
-@pytest.mark.parametrize("flag", [{"obs": object()}])
+@pytest.mark.parametrize("flag", [{"obs": {"monitor": True}}])
 def test_unported_options_raise(flag):
+    """``obs=`` is ported; what a contiguous ``Server`` still refuses is
+    the conformance monitor, which checks a paged allocator's ops."""
+
     _, (api, p) = _models("smollm-135m")
-    with pytest.raises(ValueError, match="not ported yet"):
-        Server(api, p, batch=1, context=16, **flag)
+    with pytest.raises(ValueError, match="needs Server\\(paged=True\\)"):
+        Server(api, p, batch=1, context=16,
+               obs=Observability(**flag["obs"]))
 
 
 @pytest.mark.parametrize("flags", [
@@ -160,3 +165,47 @@ def test_launch_serve_on_the_cpu(capsys, flags):
     assert "served 3 requests / 9 tokens" in out
     if flags:
         assert "paged: peak" in out and "speculate (ngram, depth 4)" in out
+
+
+def _driver(capsys, flags):
+    serve_main(["--arch", "qwen1.5-4b", "--preset", "smoke", "--requests",
+                "3", "--batch", "2", "--context", "48", "--prompt-len",
+                "10", "--max-new", "3", "--prefill-chunk", "4",
+                "--device", "cpu"] + flags)
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize("policy", ["fcfs", "priority", "prefix"])
+def test_launch_serve_scheduler_flag(capsys, policy):
+    """``--scheduler`` reaches the Server and prints the reference's
+    ``scheduler:`` line."""
+
+    out = _driver(capsys, ["--scheduler", policy])
+    assert "served 3 requests / 9 tokens" in out
+    assert f"scheduler: policy={policy} preemptions=0" in out
+
+
+def test_launch_serve_trace_metrics_profile(capsys, tmp_path):
+    """``--trace``/``--metrics``/``--profile`` attach a bundle (with the
+    monitor on a paged server) and print the reference's trace, monitor,
+    phase-profile and Prometheus lines; the document passes ``check``."""
+
+    from repro_torch.obs.cli import main as obs_main
+    path = tmp_path / "trace.json"
+    out = _driver(capsys, ["--paged", "--scheduler", "priority", "--trace",
+                           str(path), "--metrics", "--profile"])
+    assert "served 3 requests / 9 tokens" in out
+    assert "  trace: " in out and f"-> {path} (open in" in out
+    assert "  conformance monitor: accepted (" in out
+    assert "phase profile (" in out and "  host " in out
+    assert "# TYPE serve_retired counter" in out
+    assert "serve_retired 3" in out
+    assert obs_main(["check", str(path)]) == 0
+    assert "OK" in capsys.readouterr().out
+
+
+def test_launch_serve_metrics_alone_skips_the_trace(capsys):
+    out = _driver(capsys, ["--metrics"])
+    assert "trace:" not in out and "conformance monitor" not in out
+    assert "phase profile" not in out
+    assert "serve_tokens_out 9" in out

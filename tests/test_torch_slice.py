@@ -146,8 +146,14 @@ bad = [m for m in sys.modules
 assert not bad, bad
 assert len(names) >= 40, names
 for name in ("repro_torch.obs", "repro_torch.obs.metrics",
-             "repro_torch.obs.trace", "repro_torch.calibrate",
-             "repro_torch.calibrate.spec", "repro_torch.tune.artifact",
+             "repro_torch.obs.trace", "repro_torch.obs.observe",
+             "repro_torch.obs.profile", "repro_torch.obs.monitor",
+             "repro_torch.obs.cli", "repro_torch.obs.__main__",
+             "repro_torch.calibrate", "repro_torch.calibrate.spec",
+             "repro_torch.calibrate.probes",
+             "repro_torch.calibrate.trajectory",
+             "repro_torch.calibrate.cli", "repro_torch.calibrate.__main__",
+             "repro_torch.tune.artifact",
              "repro_torch.runtime.tunables", "repro_torch.runtime.workload"):
     assert name in names, name
 print(len(names))

@@ -28,7 +28,7 @@ from repro.runtime.tunables import timed_trace_drain as jax_timed_trace_drain  #
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.interop import params_from_jax  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.obs import TraceRecorder  # noqa: E402
+from repro_torch.obs import Observability, TraceRecorder  # noqa: E402
 from repro_torch.runtime import Server, workload  # noqa: E402
 from repro_torch.runtime.scheduler import make_scheduler  # noqa: E402
 from repro_torch.runtime.tunables import timed_trace_drain  # noqa: E402
@@ -140,11 +140,12 @@ def test_timed_trace_drain_matches_reference(models):
 
 
 def test_timed_trace_drain_with_obs_raises(models):
-    """``obs`` reaches the last drain's ``Server``, which does not take
-    one yet: the error says so instead of dropping it."""
+    """``obs`` reaches the last drain's ``Server``: a bundle that cannot
+    attach there (the conformance monitor on contiguous rings) raises
+    instead of being dropped."""
 
     _, (api, p) = models
     trace = workload.generate_trace(workload.TraceConfig(**TRACE))
-    with pytest.raises(ValueError, match="obs= is not ported yet"):
-        timed_trace_drain(api, p, trace, obs=object(), warmup=0, iters=1,
-                          **SERVE)
+    with pytest.raises(ValueError, match="monitor=True needs Server"):
+        timed_trace_drain(api, p, trace, obs=Observability(monitor=True),
+                          warmup=0, iters=1, **dict(SERVE, paged=False))
