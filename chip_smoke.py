@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the port's main paths on one CUDA card, end to end: the tuning
 loop, the dense model path, the paged serving path (qwen1.5-4b at full
-width), the model checker, the serving tunables, and the card's
-calibration with the Server observed on it.
+width), the model checker, the serving tunables, the card's calibration
+with the Server observed on it, and the fleet rollout and verification
+CLIs.
 
     python3 chip_smoke.py
 
@@ -94,7 +95,23 @@ Each phase prints one JSON line:
    drain profiled, phase by phase; (h) ``python -m
    repro_torch.launch.serve ... --paged --scheduler priority --trace
    --metrics --profile`` as a subprocess; then each kernel's launches
-   during (c) and (e).
+   during (c) and (e);
+11. ``fleet`` / ``verify_cli`` — the fleet rollout and the verification
+   gate, each CLI a subprocess (``python -m repro_torch.tune``,
+   ``python -m repro_torch.verify``) on a temporary cache and platform
+   spec: (a) ``examples/plans/fleet_warmup.json`` warmed whole with
+   ``--workers 4``, its ``[calibrate]`` line first, the platform job
+   against the explorer, the meta job's lattice searched for real; (b) a
+   plan at the main path's shapes (the four kernel tunables under
+   ``measure`` and ``grid``, the five serving tunables as phase 9 prices
+   them, a meta job over the 2^28 reduction); (c) ``export --platform
+   cuda``, ``merge`` into a fresh node cache, ``ls``, ``prune``, a CPU
+   bundle merged and pruned; (d) the node resolving the four kernels
+   from its cache at (b)'s shapes (no miss), each held to its plain
+   version, and both plans again as pure hits; (e) ``verify lint``,
+   ``check``, ``mutants``, a mutant's trail and phase 10(f)'s monitor
+   trail replayed; then each kernel's launches during the warm-ups and
+   (d).
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -234,6 +251,36 @@ OBSERVE_DRIVER = ["--arch", MODEL, "--preset", "full", "--requests", "4",
                   "--max-new", "16", "--prefill-chunk", "256", "--paged",
                   "--kv-pages", "112", "--scheduler", "priority", "--metrics",
                   "--profile"]
+
+
+# phase 11, the fleet rollout: the reference's plan file as it is, then a
+# plan at the main path's shapes (phase 4's parameter names) warmed under
+# both engines, and a meta job over the 2^28 reduction
+FLEET_PLAN = ROOT / "examples" / "plans" / "fleet_warmup.json"
+FLEET_KERNELS = (("kernels.tuned_reduction", {"n": REDUCE_N}),
+                 ("kernels.sweep_eval", {"n": SWEEP_SIDE * SWEEP_SIDE}),
+                 ("kernels.matmul_tuned", dict(zip("MNK", MM_BF16))),
+                 ("kernels.flash_attention", {"S": FWD_S, "D": 128, "BH": 20}))
+FLEET_META_SPACE = {"top_k": [1, 2], "repeats": [1, 3]}
+# runs ``python -m <argv[1]> <argv[2:]>`` and, at exit, writes the
+# kernels' launch counts of that process to $CHIP_SMOKE_LAUNCHES
+CLI_PRELUDE = """
+import atexit, json, os, runpy, sys
+from repro_torch.kernels.flash_attention.kernel import flash_kernel
+from repro_torch.kernels.matmul_tuned.kernel import matmul_kernel
+from repro_torch.kernels.sweep_eval.kernel import sweep_kernel
+from repro_torch.kernels.tuned_reduction.kernel import reduce_kernel
+
+def _dump():
+    with open(os.environ["CHIP_SMOKE_LAUNCHES"], "w") as f:
+        json.dump({"tuned_reduction": reduce_kernel.launches,
+                   "sweep_eval": sweep_kernel.launches,
+                   "matmul_tuned": matmul_kernel.launches,
+                   "flash_attention": flash_kernel.launches}, f)
+
+atexit.register(_dump)
+runpy.run_module(sys.argv.pop(1), run_name="__main__", alter_sys=True)
+"""
 
 
 def emit(phase: str, **fields) -> None:
@@ -1786,6 +1833,8 @@ def calibrate_and_observe(dev, counters, model, served) -> dict:
             doc_path = Path(tmp) / "observed.json"
             doc = obs.export(str(doc_path))
             problems = validate_trace(doc)
+            # kept for phase 11(e): the CLI replays it on the allocator
+            monitor_trail = obs.monitor.trail()
             cli = {}
             env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
             for cmd in ("check", "summarize"):
@@ -1810,6 +1859,7 @@ def calibrate_and_observe(dev, counters, model, served) -> dict:
                  decisions_made=decisions, cli=cli)
             if out_f != st7["out"] or problems or \
                     mon["status"] != "accepted" or mon["ops_checked"] <= 0 \
+                    or not monitor_trail["replayable"] \
                     or any(v["rc"] for v in cli.values()) or \
                     not sched.trace or decisions <= 0:
                 raise AssertionError("the observed drain failed its checks")
@@ -1868,7 +1918,521 @@ def calibrate_and_observe(dev, counters, model, served) -> dict:
     torch.cuda.synchronize()
     phase_s = time.perf_counter() - t_phase
     emit("calibrate", part="phase", seconds=phase_s)
-    return {"launches": launches, "fitted": fitted}
+    return {"launches": launches, "fitted": fitted,
+            "monitor_trail": monitor_trail}
+
+
+def run_cli(module: str, args: list, env: dict, launches_path: Path,
+            timeout: int = 600) -> dict:
+    """``python -m <module> <args>`` as a subprocess, through
+    :data:`CLI_PRELUDE`, which writes the kernels' launch counts at exit
+    to ``launches_path``.  Returns its exit code, output, seconds and
+    launches."""
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_PRELUDE, module, *map(str, args)],
+        capture_output=True, text=True, cwd=ROOT, timeout=timeout,
+        env=dict(env, CHIP_SMOKE_LAUNCHES=str(launches_path)))
+    seconds = time.perf_counter() - t0
+    try:
+        launches = json.loads(launches_path.read_text())
+    except (OSError, ValueError):
+        launches = None
+    return {"rc": proc.returncode, "out": proc.stdout, "err": proc.stderr,
+            "seconds": seconds, "launches": launches}
+
+
+def fleet_and_verify(dev, gen, counters, model, observed) -> dict:
+    """Phase 11: the fleet rollout and the verification gate, every CLI a
+    subprocess (``python -m repro_torch.tune`` / ``repro_torch.verify``)
+    with the tuning cache and the platform spec in a temporary directory.
+    (a) the reference's ``examples/plans/fleet_warmup.json`` warmed whole
+    with ``--workers 4`` (its ``[calibrate]`` line first), the platform
+    job against the explorer on the same spec, the meta job's lattice
+    searched for real; (b) a plan at the main path's full widths: the
+    four kernel tunables at phase 4's shapes under ``measure`` and under
+    ``grid`` (what ``@autotune`` looks up), the five serving tunables as
+    phase 9 prices them, and a meta job over the 2^28 reduction; (c) the
+    cache exported for ``cuda``, merged into a fresh node cache, listed,
+    pruned, and a CPU bundle merged and pruned; (d) the node resolving
+    the four kernels from its cache at (b)'s shapes, each held to its
+    plain version at phase 3's tolerances, and both plans again against
+    the node: all hits, no engine run; (e) ``verify`` on this tree:
+    ``lint``, ``check``, ``mutants``, a mutant's trail and phase 10(f)'s
+    monitor trail replayed.  ``check`` and ``mutants`` run in the
+    background from the start; after the merge the CLIs that time
+    nothing (listing, pruning, re-warm-up, lint, replays) run side by
+    side.  The launches returned are the warm-ups' (read from each
+    subprocess at its exit) and (d)'s."""
+
+    import dataclasses
+    import hashlib
+    import os
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from repro_torch.calibrate import (DEFAULT_SPEC, load_spec,
+                                       set_platform_spec)
+    from repro_torch.core import PlatformSpec, WaveParams
+    from repro_torch.kernels.flash_attention.ops import (attention_ref,
+                                                         flash_attention)
+    from repro_torch.kernels.matmul_tuned.ops import matmul_ref, matmul_tuned
+    from repro_torch.kernels.sweep_eval.ops import sweep_eval, sweep_ref
+    from repro_torch.kernels.tuned_reduction.ops import (reduce_1d,
+                                                         reduce_chunked)
+    from repro_torch.runtime.speculate import spec_depth_tunable
+    from repro_torch.runtime.tunables import (decode_batch_tunable,
+                                              kv_page_tunable,
+                                              prefill_chunk_tunable,
+                                              scheduler_tunable)
+    from repro_torch.tune import (PlatformTunable, TuningCache, build_tunable,
+                                  set_default_cache, tune,
+                                  tunable_fingerprint)
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    names = ("tuned_reduction", "sweep_eval", "matmul_tuned",
+             "flash_attention")
+    launches = dict.fromkeys(names, 0)
+    cli_s: dict[str, float] = {}
+    prev_env = {k: os.environ.get(k) for k in ("REPRO_TORCH_PLATFORM_SPEC",
+                                                "REPRO_TORCH_TUNE_CACHE")}
+    prev_spec = set_platform_spec(None)
+    prev_cache = None
+    background: dict[str, subprocess.Popen] = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            os.environ["REPRO_TORCH_PLATFORM_SPEC"] = str(
+                tmp / "platform_spec.json")
+            os.environ["REPRO_TORCH_TUNE_CACHE"] = str(tmp / "default.json")
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+            warm, node = tmp / "warm.json", tmp / "node.json"
+            lock = threading.Lock()
+
+            def cli(tag, module, *args, want_rc=0):
+                res = run_cli(module, list(args), env,
+                              tmp / f"launches-{tag}.json")
+                if res["launches"] is None:
+                    raise AssertionError(f"{tag}: no launch counts "
+                                         f"(rc {res['rc']}) {res['err']}")
+                with lock:
+                    cli_s[tag] = res["seconds"]
+                    for k in names:
+                        launches[k] += res["launches"][k]
+                if res["rc"] != want_rc:
+                    raise AssertionError(
+                        f"{tag}: exit {res['rc']} (want {want_rc})\n"
+                        f"{res['out'][-3000:]}\n{res['err'][-3000:]}")
+                return res
+
+            # (e)'s model checks, host Python on one CPU core, start first
+            # and run beside everything else (the timed jobs time the
+            # card with CUDA events)
+            trails = tmp / "trails"
+            t_background = time.perf_counter()
+            for cmd in ("check", "mutants"):
+                with open(tmp / f"{cmd}.json", "w") as out:
+                    background[cmd] = subprocess.Popen(
+                        [sys.executable, "-m", "repro_torch.verify", cmd,
+                         "--json", "--trail-dir", str(trails)],
+                        stdout=out, stderr=subprocess.PIPE, text=True,
+                        cwd=ROOT, env=env)
+
+            def finish(cmd):
+                proc = background.pop(cmd)
+                _, err = proc.communicate(timeout=900)
+                return (proc.returncode,
+                        json.loads((tmp / f"{cmd}.json").read_text()), err,
+                        time.perf_counter() - t_background)
+
+            # (a) the reference's plan, whole
+            spec_a = json.loads(FLEET_PLAN.read_text())
+            res = cli("warmup_reference", "repro_torch.tune", "--cache",
+                      warm, "warmup", FLEET_PLAN, "--workers", "4", "--json")
+            rep = json.loads(res["out"])
+            progress = [ln for ln in res["err"].splitlines()
+                        if ln.startswith("[")]
+            jobs = {j["label"]: j for j in rep["jobs"]}
+            (pjob,) = [j for j in spec_a["jobs"] if j["tunable"] == "platform"]
+            platform_tb = PlatformTunable(PlatformSpec(**pjob["params"]))
+            explorer = tune(platform_tb, engine="explorer", cache=None)
+            plat = jobs[pjob["label"]]
+            (mjob,) = [j for j in spec_a["jobs"]
+                       if j["tunable"] == "meta.engine"]
+            meta_key = jobs[mjob["label"]]["key"]
+            meta_entry = json.loads(warm.read_text())["entries"][meta_key]
+            # the meta job once more in-process (no cache), for its trials
+            meta = build_tunable("meta.engine", mjob["params"])
+            meta_res = tune(meta, engine=mjob["engine"], cache=None)
+            trials = {}
+            for key, trial in sorted(meta.trials.items()):
+                cfg = dict(key)
+                trials[f"top_k={cfg['top_k']},repeats={cfg['repeats']}"] = {
+                    "pick": trial.best_config, "t_min_us": trial.t_min,
+                    "oracle_calls": trial.oracle_calls,
+                    "provenance": trial.stats["provenance"],
+                    "shortlist": trial.stats["shortlist"],
+                    "repeats": trial.stats["repeats"],
+                    "candidates": len(trial.stats["candidates"])}
+            plan_fit = load_spec(
+                os.environ["REPRO_TORCH_PLATFORM_SPEC"]).constants()
+            space = mjob["params"]["space"]
+            points = [(k, r) for k in space["top_k"]
+                      for r in space["repeats"]]
+            emit("fleet", part="reference_plan",
+                 plan=str(FLEET_PLAN.relative_to(ROOT)), rc=res["rc"],
+                 counts=rep["counts"], calibrate=progress[0],
+                 jobs=[{k: j[k] for k in ("label", "status", "engine",
+                                          "t_min", "best_config",
+                                          "provenance", "elapsed_s")}
+                       for j in rep["jobs"]],
+                 platform={"plan_pick": plat["best_config"],
+                           "plan_t_min": plat["t_min"],
+                           "explorer_pick": explorer.best_config,
+                           "explorer_t_min": explorer.t_min,
+                           "explorer_states": explorer.stats.get("states")},
+                 meta={"plan_pick": jobs[mjob["label"]]["best_config"],
+                       "plan_points": meta_entry["oracle_calls"],
+                       "in_process_pick": meta_res.best_config,
+                       "trials": trials},
+                 plan_fit=plan_fit, data_sheet=DEFAULT_SPEC.constants(),
+                 seconds=res["seconds"], launches=res["launches"])
+            # the plan's "calibrate" key fits the card's ladders, as phase
+            # 10(a) does (the CPU's quick sizes fit launches, not roofs)
+            shares = {key: plan_fit[key] / getattr(DEFAULT_SPEC, key)
+                      for key in ("peak_flops", "hbm_bw")}
+            if not all(0.5 <= share <= 1.05 for share in shares.values()):
+                raise AssertionError(f"the plan's calibration: {shares} of "
+                                     f"the data sheet (want 50-105 %)")
+            if rep["counts"] != {"jobs": 12, "hits": 0, "tuned": 12,
+                                 "forced": 0, "failed": 0} or \
+                    len(spec_a["jobs"]) != 11 or \
+                    not progress[0].startswith(f"[calibrate] probed cuda/"
+                                               f"{name} "):
+                raise AssertionError(f"reference plan: {rep['counts']} "
+                                     f"{progress[:1]}")
+            # at size 16 the Minimum is tied ((4, 4) and (16, 4) both take
+            # 24): the explorer's witness may be the other optimum
+            if plat["t_min"] != explorer.t_min or \
+                    platform_tb.cost(plat["best_config"]) != explorer.t_min \
+                    or platform_tb.cost(explorer.best_config) != \
+                    explorer.t_min:
+                raise AssertionError(f"platform job {plat} against the "
+                                     f"explorer's {explorer.best_config} "
+                                     f"{explorer.t_min}")
+            searched = {(dict(key)["top_k"], dict(key)["repeats"]): t
+                        for key, t in meta.trials.items()}
+            if meta_entry["oracle_calls"] != len(points) or \
+                    set(searched) != set(points) or any(
+                        t.oracle_calls != k * r
+                        or t.stats["provenance"] != "measured"
+                        or len(t.stats["candidates"]) != k
+                        or t.stats["repeats"] != r
+                        for (k, r), t in searched.items()):
+                raise AssertionError(f"meta job: {meta_entry} {trials}")
+            if res["launches"]["tuned_reduction"] <= 0:
+                raise AssertionError("the meta job's inner tunes never "
+                                     "launched the reduction")
+
+            # (b) the full-width plan
+            api = model["api"]
+            serving = {
+                "serve.decode_batch": decode_batch_tunable(api, **TUNE_LOAD),
+                "serve.prefill_chunk": prefill_chunk_tunable(
+                    api, prompt_len=TUNE_PROMPT, batch=TUNE_SLOTS,
+                    **TUNE_LOAD),
+                "serve.kv_page": kv_page_tunable(
+                    api, prompt_lens=[TUNE_PROMPT], batch=TUNE_SLOTS,
+                    **TUNE_LOAD),
+                "serve.spec_depth": spec_depth_tunable(
+                    api, prompt_len=TUNE_PROMPT, batch=TUNE_SLOTS,
+                    **TUNE_LOAD),
+                "serve.scheduler": scheduler_tunable(api, **SCHED)}
+            jobs_b = []
+            for kname, params in FLEET_KERNELS:
+                for engine in ("measure", "grid"):
+                    jobs_b.append({"tunable": kname, "params": params,
+                                   "engine": engine})
+            for sname, tb in serving.items():
+                params = json.loads(json.dumps(
+                    {f.name: getattr(tb, f.name)
+                     for f in dataclasses.fields(tb) if f.compare}))
+                if build_tunable(sname, params).fingerprint() != \
+                        tunable_fingerprint(tb):
+                    raise AssertionError(f"{sname}: the plan's params do "
+                                         f"not rebuild phase 9's tunable")
+                jobs_b.append({"tunable": sname, "params": params,
+                               "engine": "grid"})
+            jobs_b.append({"tunable": "meta.engine", "label":
+                           "meta.measure-reduction-2^28", "engine": "grid",
+                           "params": {"engine": "measure", "inner": {
+                               "tunable": "kernels.tuned_reduction",
+                               "params": {"n": REDUCE_N}},
+                               "space": FLEET_META_SPACE}})
+            plan_b = tmp / "full_width_plan.json"
+            plan_b.write_text(json.dumps({"name": "full-width",
+                                          "jobs": jobs_b}, indent=1))
+            res = cli("warmup_full_width", "repro_torch.tune", "--cache",
+                      warm, "warmup", plan_b, "--json")
+            rep_b = json.loads(res["out"])
+            emit("fleet", part="full_width_plan", rc=res["rc"],
+                 counts=rep_b["counts"],
+                 jobs=[{k: j[k] for k in ("label", "status", "engine",
+                                          "t_min", "best_config",
+                                          "provenance", "elapsed_s")}
+                       for j in rep_b["jobs"]],
+                 seconds=res["seconds"], launches=res["launches"], card=smi)
+            if rep_b["counts"] != {"jobs": len(jobs_b), "hits": 0,
+                                   "tuned": len(jobs_b), "forced": 0,
+                                   "failed": 0}:
+                raise AssertionError(f"full-width plan: {rep_b['counts']}")
+            idle = [k for k in names if res["launches"][k] <= 0]
+            if idle:
+                raise AssertionError(f"the full-width measure jobs never "
+                                     f"launched {idle}")
+
+            # (c) ship it: export and merge, then side by side (none of
+            # them times anything) the node's listing, the prune chain,
+            # both plans again against the node, the lint and the replays
+            n_warm = len(TuningCache(warm))
+            art = tmp / "artifact.json"
+            shipped = {}
+            res = cli("export", "repro_torch.tune", "--cache", warm,
+                      "export", art, "--platform", "cuda")
+            shipped["export"] = res["out"].strip()
+            if not shipped["export"].startswith(
+                    f"exported {n_warm} entries (1 platform(s)) -> "):
+                raise AssertionError(f"export: {shipped['export']}")
+            res = cli("merge", "repro_torch.tune", "--cache", node,
+                      "merge", art, "--policy", "prefer_measured")
+            shipped["merge"] = res["out"].strip().splitlines()
+            if f"{n_warm} added, 0 replaced, 0 kept" not in \
+                    shipped["merge"][0] or len(shipped["merge"]) != 2 or \
+                    not shipped["merge"][1].startswith(
+                        "  artifact provenance: repro_torch "):
+                raise AssertionError(f"merge: {shipped['merge']}")
+            # a bundle made on a CPU: two entries under the CPU platform
+            cpu_cache = TuningCache(tmp / "cpu_node.json")
+            cpu_pf = {"backend": "cpu", "device_kind": "cpu",
+                      "capability": "", "torch": torch.__version__,
+                      "calibration": "default"}
+            for n in (4096, 8192):
+                tb = build_tunable("kernels.tuned_reduction",
+                                   {"n": n, "device": "cpu"})
+                doc = {"schema": 1, "tunable": tunable_fingerprint(tb),
+                       "platform": cpu_pf, "engine": "grid"}
+                key = hashlib.sha256(json.dumps(
+                    doc, sort_keys=True, default=str).encode()).hexdigest()
+                r = tune(tb, engine="grid", cache=None)
+                cpu_cache.put_entry(key, {
+                    "best_config": r.best_config, "t_min": r.t_min,
+                    "engine": "grid", "oracle_calls": r.oracle_calls,
+                    "elapsed_s": r.elapsed_s, "stats": {}, "witness": None,
+                    "created": time.time(), "provenance": "modeled",
+                    "fingerprint": doc})
+            cpu_cache.export_artifact(tmp / "cpu_bundle.json")
+            drain = tmp / "drain_trail.json"
+            drain.write_text(json.dumps(observed["monitor_trail"]))
+            mutants = finish("mutants")
+            if mutants[0] != 0 or not mutants[1]["mutants"]:
+                raise AssertionError(f"mutants: rc {mutants[0]} "
+                                     f"{mutants[2][-2000:]}")
+
+            def prune_chain():
+                return [cli("prune_none", "repro_torch.tune", "--cache",
+                            node, "prune", "--backend", "cpu"),
+                        cli("merge_cpu", "repro_torch.tune", "--cache", node,
+                            "merge", tmp / "cpu_bundle.json"),
+                        cli("prune_cpu", "repro_torch.tune", "--cache", node,
+                            "prune", "--backend", "cpu")]
+
+            side = {
+                "ls": (cli, "ls", "repro_torch.tune", "--cache", node, "ls",
+                       "--json"),
+                "prune_chain": (prune_chain,),
+                "rewarm_reference": (cli, "rewarm_reference",
+                                     "repro_torch.tune", "--cache", node,
+                                     "warmup", FLEET_PLAN, "--json"),
+                "rewarm_full_width": (cli, "rewarm_full_width",
+                                      "repro_torch.tune", "--cache", node,
+                                      "warmup", plan_b, "--json"),
+                "lint": (cli, "lint", "repro_torch.verify", "lint",
+                         "--json"),
+                "replay_drain": (cli, "replay_drain", "repro_torch.verify",
+                                 "replay", "--trail", drain)}
+            with ThreadPoolExecutor(max_workers=len(side) + 1) as pool:
+                futures = {k: pool.submit(*v) for k, v in side.items()}
+                futures["replay_mutant"] = pool.submit(
+                    cli, "replay_mutant", "repro_torch.verify", "replay",
+                    "--trail", mutants[1]["mutants"][0]["trail"], want_rc=1)
+                done = {k: f.result() for k, f in futures.items()}
+            rows = json.loads(done["ls"]["out"])
+            if len(rows) != n_warm or any(
+                    r["platform"] != f"cuda/{name}" or not r["origin"]
+                    for r in rows):
+                raise AssertionError(f"ls: {rows}")
+            for key, res in zip(("prune_none", "merge_cpu", "prune_cpu"),
+                                done["prune_chain"]):
+                shipped[key] = res["out"].strip().splitlines()[0]
+            emit("fleet", part="ship", entries=n_warm, lines=shipped,
+                 ls_platforms=sorted({r["platform"] for r in rows}),
+                 ls_origin_tools=sorted({r["origin"]["tool"] for r in rows}))
+            if not shipped["prune_none"].startswith(
+                    f"pruned 0 entries -> {n_warm} remain") or \
+                    "2 added, 0 replaced, 0 kept" not in \
+                    shipped["merge_cpu"] or not shipped["prune_cpu"] \
+                    .startswith(f"pruned 2 entries -> {n_warm} remain"):
+                raise AssertionError(f"prune/merge: {shipped}")
+
+            # (d) the fleet node: the four kernels from the node's cache
+            node_cache = TuningCache(node)
+            prev_cache = set_default_cache(node_cache)
+            x = torch.randint(-2**31, 2**31 - 1, (REDUCE_N,), generator=gen,
+                              device=dev, dtype=torch.int32)
+            axis = torch.arange(1, SWEEP_SIDE + 1, dtype=torch.int32,
+                                device=dev)
+            wg = axis.repeat_interleave(SWEEP_SIDE)
+            ts = axis.repeat(SWEEP_SIDE)
+            wave = WaveParams(size=SWEEP_CHECK_SIZE, NP=128, GMT=16, L=8,
+                              kind="minimum", NU=132, warp=32)
+            a, b = (torch.randn(*MM_BF16[:2], generator=gen, device=dev
+                                ).to(torch.bfloat16) for _ in range(2))
+            q, k, v = (torch.randn(1, 20, FWD_S, 128, generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for _ in range(3))
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = 0
+            outs = {"tuned_reduction": reduce_1d(x, op="min"),
+                    "sweep_eval": sweep_eval(wg, ts, wave),
+                    "matmul_tuned": matmul_tuned(a, b),
+                    "flash_attention": flash_attention(q, k, v, causal=True)}
+            torch.cuda.synchronize()
+            node_launches = [c.launches for c in counters]   # path ends
+            for kname, n in zip(names, node_launches):
+                launches[kname] += n
+            decisions = {
+                "tuned_reduction": reduce_1d.tune(x, op="min"),
+                "sweep_eval": sweep_eval.tune(wg, ts, wave),
+                "matmul_tuned": matmul_tuned.tune(a, b),
+                "flash_attention": flash_attention.tune(q, k, v,
+                                                        causal=True)}
+            cfg = decisions["tuned_reduction"].best_config
+            want = reduce_chunked(x, "min", cfg["WG"], cfg["TS"])
+            errs = {"tuned_reduction": abs(int(outs["tuned_reduction"])
+                                           - int(want))}
+            if not torch.equal(outs["tuned_reduction"].cpu(), want.cpu()):
+                raise AssertionError("node reduction != plain")
+            want = sweep_ref(wave, wg, ts)
+            errs["sweep_eval"] = int((outs["sweep_eval"].long()
+                                      - want.long()).abs().max())
+            if not torch.equal(outs["sweep_eval"], want):
+                raise AssertionError("node sweep != plain")
+            got, want = outs["matmul_tuned"].float(), matmul_ref(a, b).float()
+            diff = (got - want).abs()
+            tol, K = MM_TOL["bfloat16"], MM_BF16[2]
+            rel = {"matmul_tuned": float(diff.norm() / want.norm())}
+            errs["matmul_tuned"] = float(diff.max())
+            if not bool((diff <= tol * K ** 0.5 + tol * want.abs()).all()) \
+                    or rel["matmul_tuned"] > MM_REL_L2:
+                raise AssertionError(f"node matmul: {errs} {rel}")
+            got = outs["flash_attention"].float()
+            want = attention_ref(q, k, v, causal=True).float()
+            diff = (got - want).abs()
+            atol, rtol = FLASH_TOL["bfloat16"]
+            rel["flash_attention"] = float(diff.norm() / want.norm())
+            errs["flash_attention"] = float(diff.max())
+            if not bool((diff <= atol + rtol * want.abs()).all()) \
+                    or rel["flash_attention"] > FLASH_REL_L2:
+                raise AssertionError(f"node flash: {errs} {rel}")
+            emit("fleet", part="node", stats=node_cache.stats,
+                 resolved={kname: {"config": d.best_config,
+                                   "cache": d.stats["cache"]}
+                           for kname, d in decisions.items()},
+                 launches=dict(zip(names, node_launches)),
+                 max_abs_err=errs, rel_l2=rel, tol={
+                     "matmul_tuned": [tol, MM_REL_L2],
+                     "flash_attention": [atol, rtol, FLASH_REL_L2]})
+            if node_cache.misses != 0 or any(
+                    d.stats["cache"] != "hit" for d in decisions.values()) \
+                    or any(n != 1 for n in node_launches):
+                raise AssertionError(f"node: {node_cache.stats} "
+                                     f"{node_launches}")
+            del x, axis, wg, ts, a, b, q, k, v, outs, got, want, diff
+            torch.cuda.empty_cache()
+            # both plans again against the node (run in (c)'s side by
+            # side group): pure hits, no engine run
+            rewarm = {}
+            for tag in ("rewarm_reference", "rewarm_full_width"):
+                res = done[tag]
+                counts = json.loads(res["out"])["counts"]
+                rewarm[tag] = {"counts": counts, "launches": res["launches"],
+                               "seconds": res["seconds"]}
+                if counts["hits"] != counts["jobs"] or \
+                        any(res["launches"].values()):
+                    raise AssertionError(f"{tag}: {rewarm[tag]}")
+            emit("fleet", part="rewarm", **rewarm)
+
+            # (e) verify on this tree
+            res = done["lint"]
+            lint = json.loads(res["out"])
+            waived = [f"{w['path']}:{w['line']} [{w['rule']}]"
+                      for w in lint["waived"]]
+            emit("verify_cli", part="lint", rc=res["rc"], ok=lint["ok"],
+                 findings=len(lint["findings"]), waived=len(waived),
+                 waivers=waived, seconds=res["seconds"])
+            if not lint["ok"] or not waived:
+                raise AssertionError(f"lint: {lint}")
+            rc, check, err, check_s = finish("check")
+            emit("verify_cli", part="check", rc=rc, ok=check["ok"],
+                 exhaustive=check["exhaustive"],
+                 checks=[{k: c[k] for k in ("name", "status", "states",
+                                            "transitions", "elapsed_s")}
+                         for c in check["checks"]], seconds=check_s)
+            if rc != 0 or not check["ok"] or not check["exhaustive"]:
+                raise AssertionError(f"check: rc {rc} {err[-2000:]}")
+            rc, out, err, mutants_s = mutants
+            emit("verify_cli", part="mutants", rc=rc, ok=out["ok"],
+                 mutants=[{k: m[k] for k in ("mutant", "caught",
+                                             "reproduced", "ops", "states")}
+                          for m in out["mutants"]], seconds=mutants_s)
+            if len(out["mutants"]) != 6 or not all(
+                    m["caught"] and m["reproduced"] and
+                    Path(m["trail"]).exists() for m in out["mutants"]):
+                raise AssertionError(f"mutants: {out}")
+            reproduced = [ln for ln in done["replay_mutant"]["out"]
+                          .splitlines() if ln.startswith("REPRODUCED")]
+            emit("verify_cli", part="replay",
+                 mutant=out["mutants"][0]["mutant"],
+                 mutant_line=reproduced[:1],
+                 drain_ops=len(observed["monitor_trail"]["ops"]),
+                 drain_config=observed["monitor_trail"]["config"],
+                 drain_last=done["replay_drain"]["out"].strip()
+                 .splitlines()[-1])
+            if not reproduced or "trail replays clean" not in \
+                    done["replay_drain"]["out"]:
+                raise AssertionError("replay: mutant not reproduced or the "
+                                     "drain's trail diverged")
+    finally:
+        for proc in background.values():
+            proc.kill()
+            proc.wait()
+        set_platform_spec(prev_spec)
+        if prev_cache is not None:
+            set_default_cache(prev_cache)
+        for key, val in prev_env.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+    phase_s = time.perf_counter() - t_phase
+    emit("fleet", part="phase", seconds=phase_s, cli_seconds=cli_s,
+         launches=launches, card=smi)
+    return {"launches": [launches[k] for k in names]}
 
 
 def main() -> int:
@@ -2264,9 +2828,17 @@ def main() -> int:
             if observed["launches"][names.index(k)] <= 0]
     if idle:
         raise AssertionError(f"never launched in phase 10: {idle}")
+    # 11. the fleet rollout and the verification gate, through the CLIs --
+    fleet = fleet_and_verify(dev, gen, counters, model, observed)
+    emit("kernels", phase_of="fleet", launches=dict(zip(
+        names, fleet["launches"])))
+    idle = [k for k, n in zip(names, fleet["launches"]) if n <= 0]
+    if idle:
+        raise AssertionError(f"never launched in phase 11: {idle}")
     for kernel, *counts in zip(names, model["launches"],
                                model["paged_launches"], checked["launches"],
-                               served["launches"], observed["launches"]):
+                               served["launches"], observed["launches"],
+                               fleet["launches"]):
         launches[kernel] += sum(counts)
 
     sources = {"tuned_reduction": ("src/repro_torch/csrc/tuned_reduction.cu",

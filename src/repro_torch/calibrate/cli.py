@@ -5,7 +5,7 @@
 
     python -m repro_torch.calibrate run             # probe (or load) + save
     python -m repro_torch.calibrate run --force     # always re-probe
-    python -m repro_torch.calibrate run --quick     # test-sized ladders
+    python -m repro_torch.calibrate run --quick     # test-sized (CPU)
     python -m repro_torch.calibrate show            # active spec
     python -m repro_torch.calibrate export out.json # copy the artifact
 
@@ -111,7 +111,8 @@ def main(argv=None) -> int:
     p_run.add_argument("--force", action="store_true",
                        help="re-probe even if a valid artifact exists")
     p_run.add_argument("--quick", action="store_true",
-                       help="small ladders (seconds, not minutes)")
+                       help="small ladders on a CPU (seconds, not "
+                            "minutes); a card takes its own")
     p_run.add_argument("--json", action="store_true",
                        help="machine-readable status on stdout")
     p_run.set_defaults(fn=_cmd_run)

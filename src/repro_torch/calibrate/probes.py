@@ -56,8 +56,10 @@ TRIAD_FOOTPRINTS = (1 << 24, 1 << 26, 1 << 28, 1 << 30, 1 << 32)   # bytes
 # present (the card's 4 GB triad would not fit a small host)
 CPU_MATMUL_SIZES = (128, 256, 384, 512)
 CPU_TRIAD_FOOTPRINTS = (1 << 20, 4 << 20, 16 << 20, 64 << 20)
-# seconds, not minutes, on either device: the tests and the plan's
-# "calibrate" key
+# seconds, not minutes, on a CPU: the tests and the plan's "calibrate"
+# key.  A card always takes its own ladders: they probe in well under a
+# second there, and these sizes would fit its launches and L2, not its
+# roofs (0.15 TFLOP/s and 69 GB/s on the H100)
 QUICK_MATMUL_SIZES = (64, 128)
 QUICK_TRIAD_FOOTPRINTS = (1 << 18, 1 << 20)
 
@@ -234,11 +236,12 @@ def run_calibration(*, matmul_sizes: Sequence[int] | None = None,
                     dispatch_reps: int = 16, warmup: int = 1,
                     iters: int = 3, quick: bool = False) -> PlatformSpec:
     """Run every probe and fit a calibrated :class:`PlatformSpec` for the
-    running device.  ``quick=True`` shrinks the ladders to the test sizes
-    (same probes, smaller working sets); otherwise the card's ladders on
-    a card and the reference's CPU ladders without one."""
+    running device: the card's ladders on a card, and without one the
+    reference's CPU ladders, or with ``quick=True`` the test sizes (same
+    probes, smaller working sets)."""
 
     on_card = _probe_device().type == "cuda"
+    quick = quick and not on_card
     if matmul_sizes is None:
         matmul_sizes = (QUICK_MATMUL_SIZES if quick else
                         MATMUL_SIZES if on_card else CPU_MATMUL_SIZES)

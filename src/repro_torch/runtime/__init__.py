@@ -7,7 +7,7 @@ harnesses, and the seeded traffic traces the scheduler is tuned on."""
 from .kv import NO_PAGE, PagedKVAllocator, PagedKVSpec
 from .scheduler import (SCHEDULER_KINDS, FCFSScheduler, PrefixAffinityScheduler,
                         PriorityScheduler, Scheduler, TracingScheduler,
-                        make_scheduler)
+                        make_scheduler, register_scheduler)
 from .serve import Request, Server
 from .speculate import (DRAFTER_KINDS, DraftModelDrafter, Drafter,
                         NGramDrafter, SpecDepthTunable, choose_spec_depth,
@@ -22,6 +22,7 @@ from .workload import (SLO_CLASSES, TraceConfig, TraceRequest, drive_trace,
                        generate_trace, summarize)
 
 __all__ = ["Server", "Request", "Scheduler", "make_scheduler",
+           "register_scheduler",
            "FCFSScheduler", "PriorityScheduler", "PrefixAffinityScheduler",
            "TracingScheduler", "SCHEDULER_KINDS", "NO_PAGE", "PagedKVSpec",
            "PagedKVAllocator",

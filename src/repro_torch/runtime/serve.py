@@ -395,6 +395,10 @@ class Server:
         dst = torch.tensor([p[1] for p in pairs], device=self.device)
         for entry in self.state["blocks"].values():
             for buf in entry["kv"].values():
+                # verify: waive(pool-write) -- the write touches only the
+                # dst pages, which cow_pages just took off the free list
+                # for this writer alone (refcount 1, in no other table);
+                # the shared src pages are only read
                 buf[:, dst] = buf[:, src]
         self.cow_copies += len(pairs)
 
@@ -462,7 +466,9 @@ class Server:
         }
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        # a per-tick temporary, never written after the step is issued
+        # verify: waive(alias-dispatch) -- every caller passes a buffer
+        # it built with np.zeros this tick and never writes after the
+        # step is issued (the lint checks each _tensor(...) call site)
         return torch.from_numpy(a).to(self.device)
 
     def _propose_drafts(self) -> dict[int, list[int]]:

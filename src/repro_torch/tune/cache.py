@@ -15,6 +15,11 @@ is one JSON file (atomic replace on write), by default
 Writes are deferred: ``put`` only marks the store dirty, and the file is
 rewritten on :meth:`save` or at interpreter exit.  Entries carry a
 ``provenance`` — ``"modeled"`` or ``"measured"`` (the ``measure`` engine).
+
+For a fleet rollout the store ships as a bundle
+(:meth:`TuningCache.export_artifact` / :meth:`TuningCache.merge_artifact`,
+:mod:`repro_torch.tune.artifact`) and sheds entries of another backend
+or age (:meth:`TuningCache.prune`).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import os
 import tempfile
 import time
 from pathlib import Path
+from types import MappingProxyType
 from typing import Any, Mapping
 
 import torch
@@ -174,8 +180,84 @@ class TuningCache:
         }
         self._mark_dirty()
 
+    def put_entry(self, key: str, entry: Mapping[str, Any]) -> None:
+        """Store an already-serialized entry (artifact merge path)."""
+
+        self._entries[key] = dict(entry)
+        self._mark_dirty()
+
+    def clear(self) -> None:
+        self._entries.clear()
+        self._dirty = False
+        _dirty_caches.discard(self)
+        if self.path.exists():
+            self.path.unlink()
+
+    @property
+    def entries(self) -> Mapping[str, dict[str, Any]]:
+        """Read-only view of the stored entries (key -> entry doc)."""
+
+        return MappingProxyType(self._entries)
+
+    # -- fleet-rollout tooling (artifacts, pruning) -------------------------
+
+    def export_artifact(self, path, *, platform: str | None = None
+                        ) -> dict[str, Any]:
+        """Write entries as a portable schema-versioned bundle — see
+        :func:`repro_torch.tune.artifact.export_artifact`."""
+
+        from .artifact import export_artifact
+        return export_artifact(self, path, platform=platform)
+
+    def merge_artifact(self, path, *, policy: str = "prefer_measured"
+                       ) -> dict[str, Any]:
+        """Merge a bundle into this cache (``prefer_measured`` conflict
+        policy by default) — see
+        :func:`repro_torch.tune.artifact.merge_artifact`.  In memory until
+        :meth:`save`."""
+
+        from .artifact import merge_artifact
+        return merge_artifact(self, path, policy=policy)
+
+    def prune(self, *, backend: str | None = None,
+              stale_days: float | None = None,
+              now: float | None = None) -> int:
+        """Drop entries tuned for ``backend`` (the fingerprint's
+        ``"cuda"`` or ``"cpu"``, or another package's backend in a merged
+        bundle) and/or older than ``stale_days``; returns the number
+        removed.  Filters AND together; at least one is required
+        (``clear()`` wipes)."""
+
+        if backend is None and stale_days is None:
+            raise ValueError("prune needs backend= and/or stale_days= "
+                             "(use clear() to wipe the cache)")
+        now = time.time() if now is None else now
+        doomed = []
+        for key, e in self._entries.items():
+            if backend is not None:
+                pf = (e.get("fingerprint") or {}).get("platform") or {}
+                if pf.get("backend") != backend:
+                    continue
+            if stale_days is not None and \
+                    now - float(e.get("created", 0)) < stale_days * 86400:
+                continue
+            doomed.append(key)
+        for key in doomed:
+            del self._entries[key]
+        if doomed:
+            self._mark_dirty()
+        return len(doomed)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
     def __contains__(self, key: str) -> bool:
         return key in self._entries
+
+    @property
+    def stats(self) -> dict[str, int]:
+        return {"hits": self.hits, "misses": self.misses,
+                "entries": len(self._entries)}
 
 
 # every dirty cache, flushed at interpreter exit so deferred puts are

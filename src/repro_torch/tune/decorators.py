@@ -16,8 +16,10 @@ tuning runs at all, and with a subset given the remainder is tuned with
 the explicit values pinned into the lattice — the joint constraints of
 the space (e.g. shared-memory residency) still apply to the combined
 configuration.  Resolved configs are additionally memoized in-process
-(keyed by the Tunable, when hashable) so hot call sites skip the
-fingerprint/hash/cache machinery after the first call.  The wrapped
+(keyed by the Tunable, when hashable, and the cache it was resolved
+from, so a node that swaps its default cache resolves from the new one)
+so hot call sites skip the fingerprint/hash/cache machinery after the
+first call.  The wrapped
 function also exposes ``fn.tune(*args, **kw) -> TuneResult`` to inspect
 the decision the decorator would make for those arguments.
 """
@@ -28,6 +30,7 @@ import functools
 from typing import Any, Callable, Mapping, Sequence
 
 from ..core.search_space import Param, SearchSpace
+from .api import _resolve_cache
 from .api import tune as _tune
 from .cache import tunable_fingerprint
 
@@ -72,7 +75,8 @@ def autotune(make_tunable: Callable[..., Any], *, params: Sequence[str],
             pinned = {p: kw[p] for p in params if kw.get(p) is not None}
             memo_key = None
             try:
-                memo_key = (tunable, tuple(sorted(pinned.items())))
+                memo_key = (tunable, tuple(sorted(pinned.items())),
+                            _resolve_cache(cache))
                 best = memo.get(memo_key)
                 if best is not None:
                     return best

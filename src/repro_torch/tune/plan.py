@@ -14,22 +14,39 @@ Spec format (JSON or dict)::
     {"name": "warmup",
      "calibrate": true,          # resolve a platform calibration first
      "jobs": [
-       {"tunable": "platform.minimum",
-        "params": {"size": 1048576, "NP": 128, "GMT": 16, "L": 8},
+       {"tunable": "platform",
+        "params": {"size": 1048576, "NP": 128, "GMT": 16, "L": 8,
+                   "kind": "minimum"},
         "engine": "sweep"},
        {"tunable": "kernels.tuned_reduction",
         "grid": {"n": [65536, 1048576]},            # expands to 2 jobs
-        "engine": "measure", "engine_kwargs": {"repeats": 3}}]}
+        "engine": "measure", "engine_kwargs": {"repeats": 3}},
+       {"tunable": "meta.engine",                   # tune the tuner
+        "params": {"engine": "measure",
+                   "inner": {"tunable": "kernels.tuned_reduction",
+                             "params": {"n": 65536}},
+                   "space": {"top_k": [1, 2, 4], "repeats": [1, 3]}}}]}
 
 ``tunable`` names resolve through a registry (:func:`register_tunable`):
-``platform.abstract``, ``platform.minimum``, ``kernels.tuned_reduction``,
+``platform`` (a :class:`~repro_torch.core.platform.PlatformSpec`'s
+fields, ``kind`` among them; ``platform.abstract`` and
+``platform.minimum`` fix the kind), ``kernels.tuned_reduction``,
 ``kernels.sweep_eval``, ``kernels.matmul_tuned``,
-``kernels.flash_attention`` and the serving tunables
+``kernels.flash_attention``, the serving tunables
 ``serve.decode_batch``, ``serve.prefill_chunk``, ``serve.kv_page``,
-``serve.spec_depth`` and ``serve.scheduler`` are pre-registered.
-``grid`` expands list-valued entries into the cartesian product of jobs.
-``"calibrate": true`` (:class:`TuningPlan`'s ``require_calibration``)
-resolves a platform calibration before any job.
+``serve.spec_depth`` and ``serve.scheduler``, and ``meta.engine`` are
+pre-registered.  ``grid`` expands list-valued entries into the cartesian
+product of jobs.  ``"calibrate": true`` (:class:`TuningPlan`'s
+``require_calibration``) resolves a platform calibration before any job.
+
+:class:`MetaEngineTunable` is "tuning the tuner" (Willemsen & van
+Nieuwpoort, 2025) through the standard path: it exposes another tuning
+run's *engine kwargs* (``top_k``/``repeats``/``budget`` of the measure
+engine) as its own lattice, prices a point by actually running the inner
+``tune()`` with those kwargs, and scores result quality plus a
+search-effort penalty, so ``tune(MetaEngineTunable(...), "grid")``
+selects the search hyperparameters themselves, cacheable like any other
+tunable.
 """
 
 from __future__ import annotations
@@ -43,8 +60,9 @@ from typing import Any, Callable, Mapping, Sequence
 
 from ..core.autotuner import TuneResult
 from ..core.platform import PlatformSpec
+from ..core.search_space import Param, SearchSpace
 from .api import _resolve_engine_name, tune
-from .cache import TuningCache, cache_key, default_cache
+from .cache import TuningCache, cache_key, default_cache, tunable_fingerprint
 from .tunable import PlatformTunable
 
 # ---------------------------------------------------------------------------
@@ -109,12 +127,75 @@ def _ensure_builtin_factories() -> None:
     _FACTORIES.setdefault("serve.kv_page", KVPageTunable)
     _FACTORIES.setdefault("serve.spec_depth", SpecDepthTunable)
     _FACTORIES.setdefault("serve.scheduler", SchedulerTunable)
+    _FACTORIES.setdefault("platform", _platform_factory)
     for kind in ("abstract", "minimum"):
         _FACTORIES.setdefault(
             f"platform.{kind}",
-            lambda kind=kind, **spec_kw: PlatformTunable(
-                PlatformSpec(kind=kind, **spec_kw)))
+            lambda kind=kind, **spec_kw: _platform_factory(kind=kind,
+                                                           **spec_kw))
+    _FACTORIES.setdefault("meta.engine", _meta_engine_factory)
     _builtins_loaded = True
+
+
+def _platform_factory(**spec_kw):
+    return PlatformTunable(PlatformSpec(**spec_kw))
+
+
+def _meta_engine_factory(*, inner: Mapping[str, Any], engine: str = "measure",
+                         space: Mapping[str, Sequence[Any]] | None = None,
+                         oracle_call_penalty: float = 1e-3):
+    inner_tunable = build_tunable(inner["tunable"], inner.get("params"))
+    return MetaEngineTunable(inner_tunable, engine=engine, space=space,
+                             oracle_call_penalty=oracle_call_penalty)
+
+
+# ---------------------------------------------------------------------------
+# MetaEngineTunable — tuning the tuner
+# ---------------------------------------------------------------------------
+
+
+class MetaEngineTunable:
+    """Another tuning run's engine kwargs as this tunable's lattice.
+
+    ``cost(cfg)`` runs ``tune(inner, engine=..., cache=None, **cfg)`` for
+    real (caching disabled — every meta point must actually search) and
+    scores ``t_min * (1 + oracle_call_penalty * oracle_calls)``: result
+    quality, multiplicatively penalized by search effort, so between
+    equal-quality settings the cheaper search wins and a bigger
+    shortlist only wins when it finds a genuinely faster configuration.
+    The per-point inner results stay inspectable in :attr:`trials`.
+    """
+
+    DEFAULT_SPACE: dict[str, tuple[Any, ...]] = {"top_k": (1, 2, 4),
+                                                 "repeats": (1, 3)}
+
+    def __init__(self, inner, *, engine: str = "measure",
+                 space: Mapping[str, Sequence[Any]] | None = None,
+                 oracle_call_penalty: float = 1e-3):
+        self.inner = inner
+        self.engine = engine
+        self._space = {k: tuple(v)
+                       for k, v in (space or self.DEFAULT_SPACE).items()}
+        self.oracle_call_penalty = oracle_call_penalty
+        inner_name = getattr(inner, "name", type(inner).__name__)
+        self.name = f"meta.engine[{inner_name}/{engine}]"
+        self.trials: dict[tuple, TuneResult] = {}
+
+    def space(self) -> SearchSpace:
+        return SearchSpace(params=[Param(k, v)
+                                   for k, v in self._space.items()])
+
+    def cost(self, cfg: Mapping[str, Any]) -> float:
+        res = tune(self.inner, engine=self.engine, cache=None, **dict(cfg))
+        self.trials[tuple(sorted(cfg.items()))] = res
+        return res.t_min * (1.0 + self.oracle_call_penalty
+                            * res.oracle_calls)
+
+    def fingerprint(self) -> dict[str, Any]:
+        return {"tunable": "meta.engine", "engine": self.engine,
+                "inner": dict(tunable_fingerprint(self.inner)),
+                "space": {k: list(v) for k, v in self._space.items()},
+                "oracle_call_penalty": self.oracle_call_penalty}
 
 
 # ---------------------------------------------------------------------------
@@ -134,8 +215,9 @@ class TuningJob:
     engine_kwargs: dict[str, Any] = field(default_factory=dict)
     label: str = ""
     force: bool = False
-    # this job TIMES things (measure engine), so a parallel run must not
-    # let other jobs' load pollute its samples
+    # this job TIMES things (measure engine, or a meta job whose cost()
+    # runs inner measure tunes), so a parallel run must not let other
+    # jobs' load pollute its samples
     timed: bool = False
 
     def materialize(self):
@@ -216,9 +298,11 @@ class TuningPlan:
         """Append a job (a Tunable instance or a zero-arg factory);
         returns it for further tweaking."""
 
+        timed = (engine == "measure"
+                 or isinstance(tunable_or_factory, MetaEngineTunable))
         job = TuningJob(factory=tunable_or_factory, engine=engine,
                         engine_kwargs=dict(engine_kwargs), label=label,
-                        force=force, timed=engine == "measure")
+                        force=force, timed=timed)
         self.jobs.append(job)
         return job
 
@@ -250,11 +334,16 @@ class TuningPlan:
                 label = jspec.get("label", name) + suffix
                 # bind via defaults: the factory resolves lazily inside
                 # run()'s error boundary, so a bad spec fails one job
-                plan.add(lambda name=name, params=params:
-                         build_tunable(name, params),
-                         engine=jspec.get("engine", "auto"), label=label,
-                         force=bool(jspec.get("force", False)),
-                         **dict(jspec.get("engine_kwargs", {})))
+                job = plan.add(lambda name=name, params=params:
+                               build_tunable(name, params),
+                               engine=jspec.get("engine", "auto"),
+                               label=label,
+                               force=bool(jspec.get("force", False)),
+                               **dict(jspec.get("engine_kwargs", {})))
+                # the factory is lazy, so classify wall-clock
+                # sensitivity from the spec name (meta jobs time their
+                # inner tunes whatever their own engine is)
+                job.timed = job.timed or name == "meta.engine"
         return plan
 
     def run(self, *, cache="default", force: bool = False,
@@ -268,8 +357,8 @@ class TuningPlan:
         :class:`TuningCache` at the end.
 
         ``workers=N`` runs the untimed jobs through a thread pool; jobs
-        that TIME things (``engine="measure"``) run serially after the
-        pool drains, so no neighbour's load skews their samples.
+        that TIME things (``engine="measure"``, meta jobs) run serially
+        after the pool drains, so no neighbour's load skews their samples.
         Pooled jobs with the same cache key run serially within one pool
         task (the first tunes, the rest hit).  The report lists results
         in plan order either way."""
@@ -375,4 +464,5 @@ def _expand_grid(jspec: Mapping[str, Any]):
 
 
 __all__ = ["TuningPlan", "TuningJob", "JobResult", "PlanReport",
-           "register_tunable", "available_tunables", "build_tunable"]
+           "MetaEngineTunable", "register_tunable", "available_tunables",
+           "build_tunable"]

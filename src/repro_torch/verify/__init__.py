@@ -18,10 +18,12 @@ conformance bridge to the real code:
   :class:`~repro_torch.runtime.kv.PagedKVAllocator` (state agreement op
   by op) and the every-real-trace-is-a-model-path cross-check,
 * :mod:`~repro_torch.verify.mutants` — deliberately broken allocators the
-  checker must catch (the detector is itself tested).
-
-The reference's AST lint rules and its ``python -m repro.verify`` CLI
-are not ported yet (ROADMAP queue 1, item 23).
+  checker must catch (the detector is itself tested),
+* :mod:`~repro_torch.verify.lint` — AST rules codifying runtime hard-won
+  lessons (host-aliasing at ``torch.from_numpy`` and dispatch, shared-pool
+  writes, dict-order scheduling),
+* ``python -m repro_torch.verify`` — the ``check`` / ``lint`` /
+  ``replay`` / ``mutants`` CLI, a gate on the port's runtime.
 """
 
 from .conformance import (ConformanceError, coupled_explore, ops_from_trail,

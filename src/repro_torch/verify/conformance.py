@@ -14,8 +14,8 @@ this module drives them against each other in both directions:
   :mod:`~repro_torch.verify.mutants` variant it is the bug detector.
 * :func:`replay_ops` — SPIN guided-simulation analogue: re-run a trail
   op-for-op on ONE persistent real allocator from the initial state,
-  asserting agreement at every step (the reference's ``python -m
-  repro.verify replay``; the port's CLI is ROADMAP queue 1, item 23).
+  asserting agreement at every step (``python -m repro_torch.verify
+  replay``).
 * :func:`trace_accepted` — direction 2: every trace a *real* allocator
   records (the ``trace`` hook in :mod:`repro_torch.runtime.kv`) must be a
   legal path of the model with identical returns and states.

@@ -749,3 +749,50 @@ def test_triad_probe_launches_one_kernel(cuda):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 1, [e.name for e in kernels]
     assert torch.equal(z, torch.full_like(z, 2.5))
+
+
+def test_fleet_rollout_on_the_card(cuda, tmp_path, capsys):
+    """Warm a plan on the card through ``python -m repro_torch.tune``'s
+    ``main`` (measure and grid jobs), export the ``cuda`` entries, merge
+    them into a fresh node cache, and resolve ``@autotune`` there: every
+    lookup a hit, no miss, the output equal to the plain version."""
+
+    import json
+
+    from repro_torch.tune.cli import main as tune_cli
+
+    n = 2**22
+    plan = tmp_path / "plan.json"
+    plan.write_text(json.dumps({"name": "card", "jobs": [
+        {"tunable": "kernels.tuned_reduction", "params": {"n": n},
+         "engine": "measure", "engine_kwargs": {"top_k": 2, "repeats": 1}},
+        {"tunable": "kernels.tuned_reduction", "params": {"n": n},
+         "engine": "grid"}]}))
+    warm, node = str(tmp_path / "warm.json"), str(tmp_path / "node.json")
+    art = str(tmp_path / "artifact.json")
+    before = reduce_kernel.launches
+    assert tune_cli(["--cache", warm, "warmup", str(plan), "--json"]) == 0
+    rep = json.loads(capsys.readouterr().out)
+    assert rep["counts"]["tuned"] == 2
+    assert reduce_kernel.launches > before          # measured on the card
+    assert tune_cli(["--cache", warm, "export", art,
+                     "--platform", "cuda"]) == 0
+    assert "exported 2 entries (1 platform(s)) ->" in \
+        capsys.readouterr().out
+    assert tune_cli(["--cache", node, "merge", art]) == 0
+    assert "2 added, 0 replaced, 0 kept" in capsys.readouterr().out
+    assert tune_cli(["--cache", node, "ls", "--json"]) == 0
+    rows = json.loads(capsys.readouterr().out)
+    name = torch.cuda.get_device_name(0)
+    assert {r["platform"] for r in rows} == {f"cuda/{name}"}
+    assert all(r["origin"] for r in rows)
+
+    node_cache = TuningCache(node)
+    prev = set_default_cache(node_cache)
+    try:
+        x = _data(torch.int32, n, cuda)
+        assert int(reduce_1d(x, op="min")) == int(x.min())
+        assert reduce_1d.tune(x, op="min").stats["cache"] == "hit"
+        assert node_cache.misses == 0 and node_cache.hits == 2
+    finally:
+        set_default_cache(prev)

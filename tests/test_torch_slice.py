@@ -153,7 +153,9 @@ for name in ("repro_torch.obs", "repro_torch.obs.metrics",
              "repro_torch.calibrate.probes",
              "repro_torch.calibrate.trajectory",
              "repro_torch.calibrate.cli", "repro_torch.calibrate.__main__",
-             "repro_torch.tune.artifact",
+             "repro_torch.tune.artifact", "repro_torch.tune.cli",
+             "repro_torch.tune.__main__", "repro_torch.verify.lint",
+             "repro_torch.verify.cli", "repro_torch.verify.__main__",
              "repro_torch.runtime.tunables", "repro_torch.runtime.workload"):
     assert name in names, name
 print(len(names))
