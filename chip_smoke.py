@@ -2,8 +2,9 @@
 """Drive the port's main paths on one CUDA card, end to end: the tuning
 loop, the dense model path, the paged serving path (qwen1.5-4b at full
 width), the model checker, the serving tunables, the card's calibration
-with the Server observed on it, and the fleet rollout and verification
-CLIs.
+with the Server observed on it, the fleet rollout and verification
+CLIs, and the other model families (hymba, mamba2, whisper, mixtral and
+llama-3.2-vision at full width, the last two cut in depth).
 
     python3 chip_smoke.py
 
@@ -111,7 +112,26 @@ Each phase prints one JSON line:
    version, and both plans again as pure hits; (e) ``verify lint``,
    ``check``, ``mutants``, a mutant's trail and phase 10(f)'s monitor
    trail replayed; then each kernel's launches during the warm-ups and
-   (d).
+   (d);
+12. ``families`` — the earlier phases' weights released, the flash
+   kernel at each family's attention shape against its plain version
+   (``kernel`` lines: time, plain, SDPA with the window mask, the bound
+   over the pairs inside the mask), then each family on its own path, a
+   line each with its config, depth cuts, the bf16 forward's ms, flash's
+   share and launches, and its drains' ticks, wall and tokens per second:
+   (a) hymba-1.5b whole (forward at S = 4096, every layer's attention
+   flash against plain, a Server of 4 slots at 2,048 draining 4 x
+   (1,536 + 16) contiguous and paged, n-gram speculation, a profiled
+   decode tick; on an f32 cut of 4 layers the Server against the offline
+   flash forward, n-gram and self-draft drains against the plain drain);
+   (b) mamba2-2.7b whole (forward, a drain; on the f32 cut the
+   recurrence against the chunked scan); (c) whisper-medium whole
+   (encoder over 1,500 frames, decoder at S = 512 through flash, a Server
+   with frames; the f32 cut against the offline enc-dec greedy); (d)
+   mixtral-8x22b at 2 of 56 layers (the f32 cut with no drops: prefill
+   and decode logits against the forward's); (e) llama-3.2-vision-90b at
+   one block of 5 of 100 layers, with 1,024 image embeddings; then each
+   kernel's launches over the five paths.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -262,6 +282,52 @@ FLEET_KERNELS = (("kernels.tuned_reduction", {"n": REDUCE_N}),
                  ("kernels.matmul_tuned", dict(zip("MNK", MM_BF16))),
                  ("kernels.flash_attention", {"S": FWD_S, "D": 128, "BH": 20}))
 FLEET_META_SPACE = {"top_k": [1, 2], "repeats": [1, 3]}
+# phase 12, the other model families at full width, random bf16 weights
+# from a seed: each forward through the flash kernel (S = 4096; whisper's
+# decoder at 512 over 1,500 frames), a Server drain, and, on an f32 cut of
+# the same weights to FAMILY_CUT layers, the kernel against the plain math
+# and the Server against the offline forward.  mixtral-8x22b is cut to 2
+# of its 56 layers and llama-3.2-vision-90b to one block (4 dense + 1
+# cross of 100 layers): one card holds neither whole.  llama4-maverick is
+# not run (one block is ~37 GB of bf16 weights).
+FAMILY_CUT = 4
+FAMILIES = {
+    "hymba-1.5b": dict(serve=dict(batch=4, context=2048, prefill_chunk=256),
+                       requests=4, prompt_len=1536, fwd_s=FWD_S,
+                       spec_prompt_len=256),
+    "mamba2-2.7b": dict(serve=dict(batch=4, context=1024,
+                                   prefill_chunk=256),
+                        requests=4, prompt_len=512, fwd_s=FWD_S),
+    "whisper-medium": dict(serve=dict(batch=4, context=1024,
+                                      prefill_chunk=256),
+                           requests=4, prompt_len=256, fwd_s=512),
+    "mixtral-8x22b": dict(serve=dict(batch=2, context=1024,
+                                     prefill_chunk=256),
+                          requests=2, prompt_len=512, fwd_s=FWD_S,
+                          n_layers=2),
+    "llama-3.2-vision-90b": dict(serve=dict(batch=2, context=1024,
+                                            prefill_chunk=256),
+                                 requests=2, prompt_len=512, fwd_s=FWD_S,
+                                 n_layers=5),
+}
+# flash at each family's attention shape, (B, H, S, D, causal, window)
+FAMILY_FLASH = {"hymba-1.5b": (1, 25, FWD_S, 64, True, 1024),
+                "whisper-medium": (1, 16, 512, 64, True, None),
+                "mixtral-8x22b": (1, 48, FWD_S, 128, True, 4096),
+                "llama-3.2-vision-90b": (1, 64, FWD_S, 128, True, None)}
+# (f) the serving driver on hymba at full width, as a user runs it
+FAMILY_DRIVER = ["--arch", "hymba-1.5b", "--preset", "full", "--requests",
+                 "4", "--batch", "4", "--context", "2048", "--prompt-len",
+                 "1536", "--max-new", "16", "--prefill-chunk", "256"]
+# the recurrence (serving) against the chunked scan (forward) on mamba2's
+# f32 cut: rel L2 of the logits at every teacher-forced position
+SCAN_REL_TOL = 1e-3
+# mixtral's f32 cut with no drops: prefill and decode logits against the
+# forward's, rel L2 each
+MOE_CAPACITY = 16.0
+MOE_REL_TOL = 1e-3
+
+
 # runs ``python -m <argv[1]> <argv[2:]>`` and, at exit, writes the
 # kernels' launch counts of that process to $CHIP_SMOKE_LAUNCHES
 CLI_PRELUDE = """
@@ -350,10 +416,8 @@ def model_path(dev, gen, counters, flash_ms: float) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.models.attention import attention
-    from repro_torch.models.common import rms_norm, tree_leaves, tree_map
-    from repro_torch.models.transformer import (_embed, block_params,
-                                                layer_forward)
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.transformer import _embed
     from repro_torch.runtime import Server
     from repro_torch.tune import TuningCache, set_default_cache
 
@@ -396,22 +460,13 @@ def model_path(dev, gen, counters, flash_ms: float) -> dict:
             # layer's attention with the flash kernel against the plain
             # math on the same input (the plain chain's)
             pos = torch.arange(FWD_S, device=dev)[None]
-            hp = _embed(params, toks)
-            local = []
-            for i in range(cfg.n_layers):
-                bp = block_params(params["blocks"], i)["0_dense"]
-                hn = rms_norm(hp, bp["ln1"])
-                local.append(rel(attention(bp["attn"], cfg, hn, pos,
-                                           use_flash=True),
-                                 attention(bp["attn"], cfg, hn, pos)))
-                hp = layer_forward(bp, plain_cfg, "dense", hp, pos)
+            local = flash_layers(cfg, params, _embed(params, toks), pos)
             emit("model", part="layers", S=FWD_S, attn_rel_l2=local,
                  max_attn_rel_l2=max(local))
             if not max(local) <= LAYER_ATTN_TOL:
                 raise AssertionError(f"flash attention in the model: layer "
                                      f"rel error {max(local)} > "
                                      f"{LAYER_ATTN_TOL}")
-            del hp, hn
             torch.cuda.empty_cache()
 
             # (a') the same weights cut to DEPTH_CUT layers, in f32: the
@@ -503,44 +558,13 @@ def model_path(dev, gen, counters, flash_ms: float) -> dict:
             reqs = [server.submit(p, max_new=MAX_NEW) for p in prompts]
             server.run_until_drained()
             before = flash.launches
-            seqs = [list(p) for p in prompts]
-            decisive, equal, worst, gaps = ([0] * REQUESTS, [0] * REQUESTS,
-                                            0.0, [])
-            for step in range(MAX_NEW):
-                logits = padded_logits(api_cut, p_cut, seqs, dev)
-                nxt, gap = (t.tolist() for t in top2(logits))
-                served = torch.tensor([r.out[step] for r in reqs],
-                                      device=dev)
-                deficit = (logits.amax(dim=-1) - logits.gather(
-                    1, served[:, None])[:, 0]).tolist()
-                del logits
-                gaps.append(gap)
-                for r in range(REQUESTS):
-                    tok = reqs[r].out[step]
-                    if gap[r] >= GAP_MULT * d:
-                        decisive[r] += 1
-                        if nxt[r] != tok:
-                            raise AssertionError(
-                                f"request {r} step {step}: offline {nxt[r]} "
-                                f"!= server {tok} at top-2 gap {gap[r]} "
-                                f">= {GAP_MULT} d = {GAP_MULT * d}")
-                    elif deficit[r] > GAP_MULT * d:
-                        raise AssertionError(
-                            f"request {r} step {step}: server token {tok} "
-                            f"is {deficit[r]} below the offline max")
-                    equal[r] += nxt[r] == tok
-                    worst = max(worst, deficit[r])
-                    seqs[r].append(tok)
+            outs = [r.out for r in reqs]
+            greedy = greedy_against_offline(api_cut, p_cut, prompts, outs,
+                                            d, dev)
             emit("model", part="greedy_f32_cut", n_layers=DEPTH_CUT,
                  f32_flash_launches=flash.launches - before,
-                 ticks=server.ticks, decisive_compared=decisive,
-                 equal_to_offline_argmax=equal, steps=MAX_NEW,
-                 gap_threshold=GAP_MULT * d, max_deficit=worst,
-                 min_top2_gap=min(min(g_) for g_ in gaps),
-                 server_out=[r.out for r in reqs])
-            if min(decisive) < 1:
-                raise AssertionError(f"a request had no decisive step: "
-                                     f"{decisive}")
+                 ticks=server.ticks, steps=MAX_NEW, server_out=outs,
+                 **greedy)
             del server
             torch.cuda.empty_cache()
 
@@ -561,10 +585,12 @@ def top2(logits):
     return top.indices[..., 0], top.values[..., 0] - top.values[..., 1]
 
 
-def padded_logits(api, params, seqs, dev):
+def padded_logits(api, params, seqs, dev, extra=None):
     """Each sequence's next-token logits (one row a sequence, f32) from
     one forward over the batch padded right to a multiple of 128, so it
-    takes the flash gate (causal masking keeps the padding inert)."""
+    takes the flash gate (causal masking keeps the padding inert).
+    ``extra`` adds batch entries, one row a sequence (an enc-dec model's
+    ``frames``)."""
 
     import torch
     L = max(len(q) for q in seqs)
@@ -573,8 +599,52 @@ def padded_logits(api, params, seqs, dev):
     for i, q in enumerate(seqs):
         batch[i, :len(q)] = torch.tensor(q, dtype=torch.int32, device=dev)
     last = torch.tensor([len(q) - 1 for q in seqs], device=dev)
-    logits = api.forward(params, {"tokens": batch})
+    logits = api.forward(params, {"tokens": batch, **(extra or {})})
     return logits[torch.arange(len(seqs), device=dev), last].float()
+
+
+def greedy_against_offline(api, params, prompts, outs, d, dev,
+                           extra=None) -> dict:
+    """Phase 6(c)'s rule for a drain's tokens ``outs``: an offline loop
+    through ``api.forward`` (padded right to a multiple of 128, the flash
+    gate) fed the drain's own tokens, so a near tie never ends the
+    comparison.  At a decisive step (offline top-2 gap >= 10 d) the
+    drain's token must BE the offline argmax; at a near tie its logit
+    must lie within 10 d of the offline maximum."""
+
+    import torch
+    n = len(prompts)
+    seqs = [list(p) for p in prompts]
+    decisive, equal, worst, min_gap = [0] * n, [0] * n, 0.0, math.inf
+    for step in range(len(outs[0])):
+        logits = padded_logits(api, params, seqs, dev, extra)
+        nxt, gap = (t.tolist() for t in top2(logits))
+        min_gap = min(min_gap, *gap)
+        served = torch.tensor([o[step] for o in outs], device=dev)
+        deficit = (logits.amax(dim=-1) - logits.gather(
+            1, served[:, None])[:, 0]).tolist()
+        del logits
+        for r in range(n):
+            tok = outs[r][step]
+            if gap[r] >= GAP_MULT * d:
+                decisive[r] += 1
+                if nxt[r] != tok:
+                    raise AssertionError(
+                        f"request {r} step {step}: offline {nxt[r]} != "
+                        f"served {tok} at top-2 gap {gap[r]} >= "
+                        f"{GAP_MULT} d = {GAP_MULT * d}")
+            elif deficit[r] > GAP_MULT * d:
+                raise AssertionError(
+                    f"request {r} step {step}: served token {tok} is "
+                    f"{deficit[r]} below the offline max")
+            equal[r] += nxt[r] == tok
+            worst = max(worst, deficit[r])
+            seqs[r].append(tok)
+    if min(decisive) < 1:
+        raise AssertionError(f"a request had no decisive step: {decisive}")
+    return {"decisive_compared": decisive, "equal_to_offline_argmax": equal,
+            "gap_threshold": GAP_MULT * d, "max_deficit": worst,
+            "min_top2_gap": min_gap}
 
 
 def two_waves(server, prompts, max_new, after_tick=None) -> dict:
@@ -2435,6 +2505,653 @@ def fleet_and_verify(dev, gen, counters, model, observed) -> dict:
     return {"launches": [launches[k] for k in names]}
 
 
+def flash_layers(cfg, params, x, pos, enc=None) -> list:
+    """Phase 6(a)'s check over any stack: teacher-forced layer by layer
+    in the plain chain, each self-attention layer's output through the
+    flash kernel against the plain math on the same input (rel L2)."""
+
+    from repro_torch.models.attention import attention
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.transformer import (_block_plan, block_params,
+                                                layer_forward)
+
+    plain = cfg.replace(use_flash=False)
+    kinds, n_blocks = _block_plan(cfg)
+    rels = []
+    for i in range(n_blocks):
+        bp = block_params(params["blocks"], i)
+        for j, kind in enumerate(kinds):
+            p = bp[f"{j}_{kind}"]
+            if "attn" in p:
+                hn = rms_norm(x, p["ln1"])
+                got = attention(p["attn"], cfg, hn, pos, window=cfg.window,
+                                use_flash=True).float()
+                want = attention(p["attn"], cfg, hn, pos,
+                                 window=cfg.window).float()
+                rels.append(float((got - want).norm() / want.norm()))
+            x = layer_forward(p, plain, kind, x, pos, enc_out=enc)
+        if cfg.is_encdec:
+            xp = block_params(params["xattn_blocks"], i)
+            x = x + attention(xp["x"], cfg, rms_norm(x, xp["ln_x"]), pos,
+                              x_kv=enc)
+    return rels
+
+
+def cut_params(params, n_layers, **stacks):
+    """The first ``n_layers`` of every stacked tree (``blocks``,
+    ``xattn_blocks``, and each of ``stacks`` at its own depth), the rest
+    of the tree as it is; the dtype kept.  Slices are views."""
+
+    from repro_torch.models.common import tree_map
+    depth = {"blocks": n_layers, "xattn_blocks": n_layers, **stacks}
+    return {k: (tree_map(lambda t, n=depth[k]: t[:n], v) if k in depth
+                else v) for k, v in params.items()}
+
+
+def families(dev, gen, counters) -> dict:
+    """Phase 12: the other model families at full width on the card, each
+    on its own path (counts set to 0 just before its forward and drain,
+    read just after):
+
+    (a) hymba-1.5b whole: each layer's attention through flash against
+    the plain math (bf16, teacher-forced), the f32 cut flash against
+    plain end to end, the forward at S = 4096 timed, a Server of 4 slots
+    at context 2,048 draining 4 x (1,536 + 16) contiguous (the window
+    ring wraps) and paged (pages that leave the window go back), n-gram
+    speculation paged on prompts of one token repeated, a profiled
+    decode tick; on the f32 cut the Server's greedy tokens against the
+    offline flash forward, and n-gram and self-draft drains against the
+    plain drain;
+    (b) mamba2-2.7b whole: the forward (SSD chunk 128, h in f32) and a
+    drain of 4 x (512 + 16); on the f32 cut the recurrence's logits
+    against the chunked scan's and the Server against the offline
+    forward;
+    (c) whisper-medium whole: the encoder over 1,500 frames (plain: 1,500
+    does not tile by 128), the decoder at S = 512 through flash, a
+    Server with frames per request; on the f32 cut against the offline
+    enc-dec greedy;
+    (d) mixtral-8x22b, 2 of 56 layers: the forward at S = 4096, a drain
+    of 2 x (512 + 16); on the f32 cut with capacity factor 16 the
+    prefill and decode logits against the forward's;
+    (e) llama-3.2-vision-90b, one block (5 of 100 layers): the forward
+    with 1,024 image embeddings, a drain whose cross K/V starts at zero;
+    (f) ``python -m repro_torch.launch.serve --arch hymba-1.5b --preset
+    full`` as a subprocess.
+
+    First the flash kernel at each family's attention shape against its
+    plain version (not counted), for the kernel's share of a forward.
+    Returns the launches of each kernel over the five paths."""
+
+    import dataclasses
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.common import BF16_FLOPS
+    from repro_torch.kernels.flash_attention.ops import (
+        FlashAttentionTunable, attention_ref, flash_attention, visible_pairs)
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.transformer import _embed, _sinusoid, encode
+    from repro_torch.runtime import DraftModelDrafter, Server
+    from repro_torch.tune import TuningCache, set_default_cache, tune
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    total = [0] * len(counters)
+    fk = counters[-1]
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def start_path():
+        for c in counters:
+            c.launches = 0
+
+    def end_path():
+        for i, c in enumerate(counters):
+            total[i] += c.launches
+        return fk.launches
+
+    def build(name, n_layers=None):
+        cfg = get_config(name).replace(use_flash=True)
+        if n_layers is not None:
+            cfg = cfg.replace(n_layers=n_layers)
+        api = build_model(cfg)
+        t0 = time.perf_counter()
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        params = api.init(g, device=dev)
+        torch.cuda.synchronize()
+        return cfg, api, params, {
+            "params": api.param_count(),
+            "weight_bytes": sum(t.numel() * t.element_size()
+                                for t in tree_leaves(params)),
+            "init_s": time.perf_counter() - t0}
+
+    def timed_forward(api, params, batch, n_flash):
+        """The forward (after one call that lets @autotune resolve the
+        blocks), three times, and the plain forward once: median ms,
+        flash launches per forward."""
+
+        api.forward(params, batch)
+        ms, per = [], []
+        for _ in range(3):
+            before = fk.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = api.forward(params, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            per.append(fk.launches - before)
+            S = batch["tokens"].shape[1]
+            if not bool(torch.isfinite(logits[0, -1]).all()) or \
+                    logits.shape != (1, S, api.cfg.vocab):
+                raise AssertionError(f"{api.cfg.name} forward: "
+                                     f"{logits.shape}, non-finite logits")
+            del logits
+        if per != [n_flash] * 3:
+            raise AssertionError(f"{api.cfg.name}: flash launches a forward "
+                                 f"{per}, want {n_flash}")
+        return sorted(ms)[1], ms, per[0]
+
+    def plain_forward_ms(api, params, batch):
+        plain = build_model(api.cfg.replace(use_flash=False))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain.forward(params, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def drain(api, params, prompts, max_new, frames=None, prepare=None,
+              **kw):
+        server = Server(api, params, **kw)
+        if prepare is not None:
+            prepare(server)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [server.submit(q, max_new=max_new,
+                              frames=None if frames is None else frames[i])
+                for i, q in enumerate(prompts)]
+        server.run_until_drained(max_ticks=100_000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not all(r.done and len(r.out) == max_new for r in reqs):
+            raise AssertionError(f"{api.cfg.name}: a request did not finish")
+        n_tok = sum(len(r.out) for r in reqs)
+        return server, [r.out for r in reqs], {
+            "ticks": server.ticks, "wall_s": wall, "tokens": n_tok,
+            "tok_per_s": n_tok / wall, "stats": server.stats()}
+
+    def f32_cut(api, params, n_layers=FAMILY_CUT, **kw):
+        """The model cut to ``n_layers`` (``kw`` replaces more config
+        fields), with flash and plain, and its weights in f32."""
+
+        cfg = api.cfg.replace(n_layers=n_layers, **kw)
+        p = tree_map(lambda t: t.float(), cut_params(
+            params, n_layers, **({"enc_blocks": kw["encoder_layers"]}
+                                 if "encoder_layers" in kw else {})))
+        return build_model(cfg), build_model(
+            cfg.replace(use_flash=False)), p
+
+    def last_logits(a_api, b_api, p, batch):
+        got = a_api.forward(p, batch)[:, -1].float()
+        want = b_api.forward(p, batch)[:, -1].float()
+        idx, gap = top2(want)
+        return {"max_abs_diff": float((got - want).abs().max()),
+                "rel_l2": rel(got, want), "min_top2_gap": float(gap.min()),
+                "argmax_equal": bool((got.argmax(-1) == idx).all())}
+
+    def release():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # the flash kernel at each family's shape, bf16, against its plain
+    # version (phase 3d's tolerances); library: SDPA, a boolean window
+    # mask where there is a window; the bound counts the (q, k) pairs
+    # inside the mask
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flash = {}
+    for name, (B, H, S, D, causal, window) in FAMILY_FLASH.items():
+        q, k, v = (torch.randn(B, H, S, D, generator=gen, device=dev
+                               ).to(torch.bfloat16) for _ in range(3))
+        tiles = tune(FlashAttentionTunable(
+            S=S, D=D, BH=B * H, causal=causal, window=window,
+            dtype_bytes=2), engine="grid", cache=None).best_config
+        run = lambda: flash_attention(q, k, v, causal=causal, window=window,
+                                      **tiles)
+        plain = lambda: attention_ref(q, k, v, causal=causal, window=window)
+        got, want = run().float(), plain().float()
+        atol, rtol = FLASH_TOL["bfloat16"]
+        diff = (got - want).abs()
+        rel_l2 = float(diff.norm() / want.norm())
+        if not bool((diff <= atol + rtol * want.abs()).all()) \
+                or not rel_l2 <= FLASH_REL_L2:
+            raise AssertionError(f"flash at {name}'s shape: max err "
+                                 f"{diff.max()}, rel L2 {rel_l2}")
+        if window is None:
+            library = lambda: sdpa(q, k, v, is_causal=causal)
+        else:
+            i = torch.arange(S, device=dev)
+            keep = (i[None, :] <= i[:, None]) & \
+                (i[None, :] >= i[:, None] - window + 1)
+            library = lambda: sdpa(q, k, v, attn_mask=keep)
+        pairs = visible_pairs(S, causal, window)
+        bb, by = bound_ms(4 * B * H * S * D * 2, 4 * B * H * pairs * D,
+                          BF16_FLOPS)
+        flash[name] = {
+            "case": f"{name}-bfloat16-{B}x{H}x{S}x{D}-causal={causal}-"
+                    f"window={window}",
+            "config": tiles, "max_abs_err": float(diff.max()),
+            "rel_l2": rel_l2, "tol": [atol, rtol, FLASH_REL_L2],
+            "ms": time_ms(run, 10), "plain_ms": time_ms(plain, 3, warmup=1),
+            "library_ms": time_ms(library, 10), "bound_ms": bb,
+            "bound_by": by, "pairs": pairs}
+        flash[name]["tflops"] = 4 * B * H * pairs * D / \
+            flash[name]["ms"] / 1e9
+        emit("kernel", name="flash_attention", **flash[name])
+        del q, k, v, got, want, diff
+    release()
+
+    rng = np.random.default_rng(12)
+    with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
+        prev = set_default_cache(TuningCache(Path(tmp) / "tune_cache.json"))
+        try:
+            # (a) hymba-1.5b -------------------------------------------------
+            name = "hymba-1.5b"
+            fam = FAMILIES[name]
+            cfg, api, params, init = build(name)
+            S = fam["fwd_s"]
+            toks = torch.randint(0, cfg.vocab, (1, S), generator=gen,
+                                 device=dev)
+            pos = torch.arange(S, device=dev)[None]
+            local = flash_layers(cfg, params, _embed(params, toks), pos)
+            if not max(local) <= LAYER_ATTN_TOL:
+                raise AssertionError(f"{name}: flash in the model, layer "
+                                     f"rel error {max(local)}")
+            api_cut, plain_cut, p_cut = f32_cut(api, params)
+            cmp = last_logits(api_cut, plain_cut, p_cut, {"tokens": toks})
+            d = cmp["max_abs_diff"]
+            if not cmp["rel_l2"] <= FWD_REL_TOL:
+                raise AssertionError(f"{name} f32 cut: flash vs plain rel "
+                                     f"{cmp['rel_l2']} > {FWD_REL_TOL}")
+            emit("families", part="hymba_checks", arch=name,
+                 attn_rel_l2=local, max_attn_rel_l2=max(local),
+                 f32_cut_layers=FAMILY_CUT, f32_cut_forward=cmp)
+            prompts = [rng.integers(0, cfg.vocab, fam["prompt_len"]).tolist()
+                       for _ in range(fam["requests"])]
+            rep = [[p_[0]] * fam["prompt_len"] for p_ in prompts]
+            serve = fam["serve"]
+            paged_kw = dict(serve, paged=True, page_size=16)
+
+            start_path()
+            fwd_ms, fwd_all, n_flash = timed_forward(api, params,
+                                                     {"tokens": toks},
+                                                     cfg.n_layers)
+            srv, out_c, contiguous = drain(api, params, prompts, MAX_NEW,
+                                           **serve)
+            # a decode tick of 4 reused slots (their SSM state reset)
+            reqs = [srv.submit(q[:64], max_new=4) for q in prompts]
+            while not all(r.out for r in reqs):
+                srv.tick()
+            prof = tick_profile(srv)
+            srv.run_until_drained()
+            del srv
+            srv, out_p, paged = drain(api, params, prompts, MAX_NEW,
+                                      **paged_kw)
+            peak, full = srv.peak_used_pages, fam["requests"] * -(-(
+                fam["prompt_len"] + MAX_NEW) // 16)
+            del srv
+            srv, _, ngram = drain(api, params, rep, MAX_NEW,
+                                  speculate="ngram", spec_depth=SPEC_DEPTH,
+                                  **paged_kw)
+            del srv
+            launched = end_path()
+            plain_ms = plain_forward_ms(api, params, {"tokens": toks})
+            if peak >= full:
+                raise AssertionError(f"{name} paged: peak {peak} pages, no "
+                                     f"fewer than {full} for whole streams")
+            if ngram["stats"]["spec_proposed"] <= 0:
+                raise AssertionError(f"{name}: n-gram drafted nothing")
+            equal = sum(x == y for a, b in zip(out_c, out_p)
+                        for x, y in zip(a, b))
+            line = dict(
+                arch=name, reduced=None, params=init["params"],
+                weight_bytes=init["weight_bytes"], init_s=init["init_s"],
+                S=S, forward_ms=fwd_ms, forward_ms_all=fwd_all,
+                plain_forward_ms=plain_ms, flash_launches_per_forward=n_flash,
+                flash_share=n_flash * flash[name]["ms"] / fwd_ms,
+                flash_launches=launched, serve=serve,
+                requests=fam["requests"], prompt_len=fam["prompt_len"],
+                max_new=MAX_NEW, contiguous=contiguous, paged=paged,
+                paged_peak_pages=peak, pages_for_whole_streams=full,
+                paged_tokens_equal_to_contiguous=equal,
+                ngram_paged=dict(ngram, prompts="one token repeated"),
+                decode_tick_profile=prof)
+            emit("families", part="hymba", **line)
+            del params
+            release()
+
+            # the f32 cut: the Server against the offline flash forward,
+            # paged against contiguous (the window ring wraps), the
+            # speculative drains (prompts of one token repeated, as in
+            # (a)'s n-gram drain) against the plain drain
+            _, base, _ = drain(api_cut, p_cut, prompts, MAX_NEW, **serve)
+            greedy = greedy_against_offline(api_cut, p_cut, prompts, base, d,
+                                            dev)
+            _, out_p, _ = drain(api_cut, p_cut, prompts, MAX_NEW, **paged_kw)
+            rep = [q[:fam["spec_prompt_len"]] for q in rep]
+            _, rep_base, _ = drain(api_cut, p_cut, rep, MAX_NEW, **serve)
+            _, out_ng, ng = drain(api_cut, p_cut, rep, MAX_NEW,
+                                  speculate="ngram", spec_depth=SPEC_DEPTH,
+                                  **paged_kw)
+            _, out_sd, sd = drain(api_cut, p_cut, rep, MAX_NEW,
+                                  speculate=DraftModelDrafter(
+                                      api_cut, p_cut, bucket=128),
+                                  spec_depth=SPEC_DEPTH, **serve)
+            emit("families", part="hymba_f32_cut", n_layers=FAMILY_CUT,
+                 greedy=greedy, paged=first_divergence(
+                     api_cut, p_cut, prompts, out_p, base, d, dev),
+                 ngram_paged=dict(first_divergence(
+                     api_cut, p_cut, rep, out_ng, rep_base, d, dev),
+                     **ng["stats"]),
+                 self_draft=dict(first_divergence(
+                     api_cut, p_cut, rep, out_sd, rep_base, d, dev),
+                     **sd["stats"]))
+            if ng["stats"]["spec_proposed"] <= 0 or \
+                    sd["stats"]["spec_accepted"] <= 0:
+                raise AssertionError(f"{name} f32 cut: speculation idle")
+            del api_cut, plain_cut, p_cut
+            release()
+
+            # (b) mamba2-2.7b ------------------------------------------------
+            name = "mamba2-2.7b"
+            fam = FAMILIES[name]
+            cfg, api, params, init = build(name)
+            S = fam["fwd_s"]
+            toks = torch.randint(0, cfg.vocab, (1, S), generator=gen,
+                                 device=dev)
+            prompts = [rng.integers(0, cfg.vocab, fam["prompt_len"]).tolist()
+                       for _ in range(fam["requests"])]
+            start_path()
+            fwd_ms, fwd_all, n_flash = timed_forward(api, params,
+                                                     {"tokens": toks}, 0)
+            _, _, contiguous = drain(api, params, prompts, MAX_NEW,
+                                     **fam["serve"])
+            launched = end_path()
+            line = dict(
+                arch=name, reduced=None, params=init["params"],
+                weight_bytes=init["weight_bytes"], init_s=init["init_s"],
+                S=S, ssd_chunk=cfg.ssm.chunk, forward_ms=fwd_ms,
+                forward_ms_all=fwd_all, flash_launches_per_forward=n_flash,
+                flash_share=0.0, flash_launches=launched,
+                serve=fam["serve"], requests=fam["requests"],
+                prompt_len=fam["prompt_len"], max_new=MAX_NEW,
+                contiguous=contiguous)
+            emit("families", part="mamba2", **line)
+            # the f32 cut: the recurrence (prefill chunks, then decode
+            # steps, teacher-forced) against the chunked scan
+            api_cut, _, p_cut = f32_cut(api, params)
+            del params
+            release()
+            seq = torch.tensor([prompts[0] + prompts[1][:MAX_NEW]],
+                               device=dev)
+            want = api_cut.forward(p_cut, {"tokens": seq})[0].float()
+            st = api_cut.init_decode_state(1, 1024, dtype=torch.float32,
+                                           device=dev)
+            P, T = fam["prompt_len"], fam["serve"]["prefill_chunk"]
+            got = []
+            for c0 in range(0, P, T):
+                chunk = seq[:, c0:min(c0 + T, P)]
+                lg, _ = api_cut.verify_step(p_cut, st, chunk, c0)
+                api_cut.prefill_step(p_cut, st, chunk, c0)
+                got.append(lg[0])
+            for t in range(P, seq.shape[1]):
+                lg, _ = api_cut.decode_step(p_cut, st, seq[:, t:t + 1], t)
+                got.append(lg)
+            got = torch.cat(got).float()
+            rels = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
+            d = float((got - want).abs().max())
+            if not max(rels) <= SCAN_REL_TOL:
+                raise AssertionError(f"{name} f32 cut: recurrence vs scan "
+                                     f"rel {max(rels)} > {SCAN_REL_TOL}")
+            _, out, _ = drain(api_cut, p_cut, prompts, MAX_NEW,
+                              **fam["serve"])
+            emit("families", part="mamba2_f32_cut", n_layers=FAMILY_CUT,
+                 positions=len(rels), max_rel_l2=max(rels),
+                 rel_tol=SCAN_REL_TOL, max_abs_diff=d,
+                 greedy=greedy_against_offline(api_cut, p_cut, prompts, out,
+                                               d, dev))
+            del api_cut, p_cut, st
+            release()
+
+            # (c) whisper-medium ---------------------------------------------
+            name = "whisper-medium"
+            fam = FAMILIES[name]
+            cfg, api, params, init = build(name)
+            S = fam["fwd_s"]
+            toks = torch.randint(0, cfg.vocab, (1, S), generator=gen,
+                                 device=dev)
+            frames = (torch.randn(fam["requests"], cfg.enc_seq, cfg.d_model,
+                                  generator=gen, device=dev) * 0.3
+                      ).to(torch.bfloat16)
+            batch = {"tokens": toks, "frames": frames[:1]}
+            enc = encode(params, cfg, frames[:1])
+            x = _embed(params, toks) + _sinusoid(S, cfg.d_model,
+                                                 torch.bfloat16, dev)
+            local = flash_layers(cfg, params, x,
+                                 torch.arange(S, device=dev)[None], enc)
+            if not max(local) <= LAYER_ATTN_TOL:
+                raise AssertionError(f"{name}: flash in the decoder, layer "
+                                     f"rel error {max(local)}")
+            del enc, x
+            prompts = [rng.integers(0, cfg.vocab, fam["prompt_len"]).tolist()
+                       for _ in range(fam["requests"])]
+            start_path()
+            fwd_ms, fwd_all, n_flash = timed_forward(api, params, batch,
+                                                     cfg.n_layers)
+            _, _, served = drain(api, params, prompts, MAX_NEW,
+                                 frames=frames, **fam["serve"])
+            launched = end_path()
+            line = dict(
+                arch=name, reduced=None, params=init["params"],
+                weight_bytes=init["weight_bytes"], init_s=init["init_s"],
+                S=S, enc_seq=cfg.enc_seq, forward_ms=fwd_ms,
+                forward_ms_all=fwd_all,
+                plain_forward_ms=plain_forward_ms(api, params, batch),
+                flash_launches_per_forward=n_flash,
+                flash_share=n_flash * flash[name]["ms"] / fwd_ms,
+                flash_launches=launched, attn_rel_l2=local,
+                serve=fam["serve"], requests=fam["requests"],
+                prompt_len=fam["prompt_len"], max_new=MAX_NEW,
+                frames_per_request=True, contiguous=served)
+            emit("families", part="whisper", **line)
+            api_cut, plain_cut, p_cut = f32_cut(
+                api, params, encoder_layers=FAMILY_CUT)
+            del params
+            release()
+            fr32 = frames.float()
+            cmp = last_logits(api_cut, plain_cut, p_cut,
+                              {"tokens": toks, "frames": fr32[:1]})
+            if not cmp["rel_l2"] <= FWD_REL_TOL:
+                raise AssertionError(f"{name} f32 cut: flash vs plain rel "
+                                     f"{cmp['rel_l2']} > {FWD_REL_TOL}")
+            # the decode state keeps the cross K/V in bf16 whatever the
+            # params' dtype, as the reference's does; its rounding moves
+            # the logits by more than most top-2 gaps of this random
+            # model.  So the f32 cut's Server gets f32 buffers of the same
+            # shape, and the bf16 state's difference is read beside: the
+            # prefill logits at the prompts' last token against the
+            # forward's, with each state
+            def f32_cross(srv_state):
+                srv_state["xattn"] = {k_: torch.zeros_like(
+                    v, dtype=torch.float32)
+                    for k_, v in srv_state["xattn"].items()}
+
+            toks_p = torch.tensor(prompts, device=dev)
+            want = api_cut.forward(p_cut, {"tokens": toks_p,
+                                           "frames": fr32})[:, -1].float()
+            kv = api_cut.encode_cross_kv(p_cut, fr32)
+            d_serve = {}
+            for kind in ("bfloat16", "float32"):
+                st = api_cut.init_decode_state(
+                    len(prompts), fam["serve"]["context"],
+                    dtype=torch.float32, device=dev)
+                if kind == "float32":
+                    f32_cross(st)
+                for k_, buf in st["xattn"].items():
+                    buf.copy_(kv[k_].to(buf.dtype))
+                lg, _ = api_cut.prefill_step(p_cut, st, toks_p, 0)
+                d_serve[kind] = float((lg.float() - want).abs().max())
+            d = max(cmp["max_abs_diff"], d_serve["float32"])
+            del st, kv, lg, want
+            _, out, _ = drain(api_cut, p_cut, prompts, MAX_NEW, frames=fr32,
+                              prepare=lambda srv: f32_cross(srv.state),
+                              **fam["serve"])
+            emit("families", part="whisper_f32_cut", n_layers=FAMILY_CUT,
+                 encoder_layers=FAMILY_CUT, forward=cmp,
+                 serving_max_abs_diff_by_cross_kv_dtype=d_serve,
+                 greedy=greedy_against_offline(api_cut, p_cut, prompts, out,
+                                               d, dev, {"frames": fr32}))
+            del api_cut, plain_cut, p_cut, frames, fr32
+            release()
+
+            # (d) mixtral-8x22b, 2 of 56 layers -------------------------------
+            name = "mixtral-8x22b"
+            fam = FAMILIES[name]
+            cfg, api, params, init = build(name, fam["n_layers"])
+            S = fam["fwd_s"]
+            toks = torch.randint(0, cfg.vocab, (1, S), generator=gen,
+                                 device=dev)
+            local = flash_layers(cfg, params, _embed(params, toks),
+                                 torch.arange(S, device=dev)[None])
+            if not max(local) <= LAYER_ATTN_TOL:
+                raise AssertionError(f"{name}: flash in the model, layer "
+                                     f"rel error {max(local)}")
+            prompts = [rng.integers(0, cfg.vocab, fam["prompt_len"]).tolist()
+                       for _ in range(fam["requests"])]
+            start_path()
+            fwd_ms, fwd_all, n_flash = timed_forward(api, params,
+                                                     {"tokens": toks},
+                                                     cfg.n_layers)
+            _, _, served = drain(api, params, prompts, MAX_NEW,
+                                 **fam["serve"])
+            launched = end_path()
+            line = dict(
+                arch=name, reduced={"n_layers": [56, fam["n_layers"]]},
+                params=init["params"], weight_bytes=init["weight_bytes"],
+                init_s=init["init_s"], S=S, forward_ms=fwd_ms,
+                forward_ms_all=fwd_all,
+                plain_forward_ms=plain_forward_ms(api, params,
+                                                  {"tokens": toks}),
+                flash_launches_per_forward=n_flash,
+                flash_share=n_flash * flash[name]["ms"] / fwd_ms,
+                flash_launches=launched, attn_rel_l2=local,
+                serve=fam["serve"], requests=fam["requests"],
+                prompt_len=fam["prompt_len"], max_new=MAX_NEW,
+                contiguous=served)
+            emit("families", part="mixtral", **line)
+            # the f32 cut (the same 2 layers) with no drops: prefill
+            # chunks and decode steps against the forward, position by
+            # position
+            nodrop = dataclasses.replace(cfg.moe,
+                                         capacity_factor=MOE_CAPACITY)
+            api_cut, _, p_cut = f32_cut(api, params, fam["n_layers"],
+                                           moe=nodrop)
+            del params
+            release()
+            seq = torch.tensor([prompts[0][:128]], device=dev)
+            L = seq.shape[1]
+            want = api_cut.forward(p_cut, {"tokens": seq})[0].float()
+            st = api_cut.init_decode_state(1, 256, dtype=torch.float32,
+                                           device=dev)
+            lg_pre, _ = api_cut.prefill_step(p_cut, st, seq[:, :L - 32], 0)
+            got = [lg_pre[0]]
+            for t in range(L - 32, L):
+                lg, _ = api_cut.decode_step(p_cut, st, seq[:, t:t + 1], t)
+                got.append(lg[0])
+            got = torch.stack(got).float()
+            ref = want[L - 33:]
+            rels = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).tolist()
+            if not max(rels) <= MOE_REL_TOL:
+                raise AssertionError(f"{name} f32 cut: prefill/decode vs "
+                                     f"forward rel {max(rels)}")
+            emit("families", part="mixtral_f32_cut",
+                 n_layers=fam["n_layers"], capacity_factor=MOE_CAPACITY,
+                 positions=len(rels), prefill_rel_l2=rels[0],
+                 max_decode_rel_l2=max(rels[1:]), rel_tol=MOE_REL_TOL)
+            del api_cut, p_cut, st
+            release()
+
+            # (e) llama-3.2-vision-90b, one block -----------------------------
+            name = "llama-3.2-vision-90b"
+            fam = FAMILIES[name]
+            cfg, api, params, init = build(name, fam["n_layers"])
+            # a non-zero cross gate, so the cross layer adds to the stream
+            params["blocks"]["4_cross"]["gate"].fill_(0.5)
+            S = fam["fwd_s"]
+            toks = torch.randint(0, cfg.vocab, (1, S), generator=gen,
+                                 device=dev)
+            img = (torch.randn(1, cfg.n_img_tokens, cfg.d_model,
+                               generator=gen, device=dev) * 0.3
+                   ).to(torch.bfloat16)
+            local = flash_layers(cfg, params, _embed(params, toks),
+                                 torch.arange(S, device=dev)[None], img)
+            if not max(local) <= LAYER_ATTN_TOL:
+                raise AssertionError(f"{name}: flash in the model, layer "
+                                     f"rel error {max(local)}")
+            prompts = [rng.integers(0, cfg.vocab, fam["prompt_len"]).tolist()
+                       for _ in range(fam["requests"])]
+            batch = {"tokens": toks, "img_embeds": img}
+            start_path()
+            fwd_ms, fwd_all, n_flash = timed_forward(api, params, batch, 4)
+            _, _, served = drain(api, params, prompts, MAX_NEW,
+                                 **fam["serve"])
+            launched = end_path()
+            line = dict(
+                arch=name, reduced={"n_layers": [100, fam["n_layers"]]},
+                params=init["params"], weight_bytes=init["weight_bytes"],
+                init_s=init["init_s"], S=S, n_img_tokens=cfg.n_img_tokens,
+                cross_gate=0.5, forward_ms=fwd_ms, forward_ms_all=fwd_all,
+                plain_forward_ms=plain_forward_ms(api, params, batch),
+                flash_launches_per_forward=n_flash,
+                flash_share=n_flash * flash[name]["ms"] / fwd_ms,
+                flash_launches=launched, attn_rel_l2=local,
+                serve=fam["serve"], requests=fam["requests"],
+                prompt_len=fam["prompt_len"], max_new=MAX_NEW,
+                cross_kv="zero (the Server fills no image K/V)",
+                contiguous=served)
+            emit("families", part="vision", **line)
+            del params, img
+            release()
+
+            # (f) the serving driver, hymba-1.5b at full width --------------
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                       REPRO_TORCH_TUNE_CACHE=str(Path(tmp) / "driver.json"))
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m",
+                                   "repro_torch.launch.serve",
+                                   *FAMILY_DRIVER], capture_output=True,
+                                  text=True, env=env, timeout=600)
+            out = proc.stdout.splitlines()
+            emit("families", part="driver", argv=FAMILY_DRIVER,
+                 rc=proc.returncode, seconds=time.perf_counter() - t0,
+                 output=out[-6:], stderr=proc.stderr[-2000:])
+            if proc.returncode != 0 or not any(
+                    "served 4 requests / 64 tokens" in ln for ln in out):
+                raise AssertionError(f"the serving driver on hymba: rc "
+                                     f"{proc.returncode}")
+        finally:
+            set_default_cache(prev)
+    torch.cuda.synchronize()
+    emit("families", part="phase", seconds=time.perf_counter() - t_phase,
+         peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    return {"launches": total}
+
+
 def main() -> int:
     import torch
 
@@ -2840,6 +3557,21 @@ def main() -> int:
                                served["launches"], observed["launches"],
                                fleet["launches"]):
         launches[kernel] += sum(counts)
+    # 12. the other families, the earlier phases' weights released first --
+    del model, checked, served, observed, fleet
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("families", part="start",
+         allocated_bytes=torch.cuda.memory_allocated())
+    fams = families(dev, gen, counters)
+    emit("kernels", phase_of="families", launches=dict(zip(
+        names, fams["launches"])))
+    if fams["launches"][names.index("flash_attention")] <= 0:
+        raise AssertionError("flash attention never launched on the "
+                             "families' paths")
+    for kernel, n in zip(names, fams["launches"]):
+        launches[kernel] += n
 
     sources = {"tuned_reduction": ("src/repro_torch/csrc/tuned_reduction.cu",
                                    "src/repro/kernels/tuned_reduction/kernel.py:76"),

@@ -8,8 +8,11 @@ Example (qwen1.5-4b at full width, random weights from ``--seed``):
       --preset full --requests 4 --batch 4 --context 1024 \\
       --prompt-len 512 --max-new 16 --paged --kv-pages 112
 
-``--preset smoke`` runs the architecture's reduced variant; ``--device
-cpu`` runs the plain PyTorch versions on the host.
+``--arch`` takes every registered config (dense, SSM, MoE, hybrid, vlm,
+enc-dec); as in the reference, no frames or image embeddings are fed,
+so an enc-dec or vlm request decodes against zero cross K/V.  ``--preset
+smoke`` runs the architecture's reduced variant; ``--device cpu`` runs
+the plain PyTorch versions on the host.
 
 ``--scheduler fcfs|priority|prefix`` picks the serving policy;
 ``--trace OUT.json``, ``--metrics`` and ``--profile`` attach a

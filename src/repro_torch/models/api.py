@@ -1,4 +1,4 @@
-"""Unified model API for dense decoders (the port's copy of
+"""Unified model API for every family (the port's copy of
 ``repro.models.api``).
 
 ``build_model(cfg)`` returns a :class:`ModelAPI` whose functions take the
@@ -6,22 +6,25 @@ parameter tree first:
 
 * ``init(generator, device)``      — bf16 weights made on the device
 * ``loss(params, batch)``          — forward + CE loss
-* ``forward(params, batch)``       — logits (the serving-prefill form)
-* ``decode_state_specs(B, ctx, paged)`` — per-block KV rings, or with
-  ``paged`` a shared page pool, as a PSpec tree
+* ``forward(params, batch)``       — logits (the serving-prefill form);
+  ``batch["frames"]`` for enc-dec, ``batch["img_embeds"]`` for the vlm
+* ``decode_state_specs(B, ctx, paged)`` — per-block KV rings (or with
+  ``paged`` a shared page pool), SSM states, cross-attention K/V, as a
+  PSpec tree
 * ``decode_step`` / ``prefill_step`` / ``verify_step`` — the serving
   steps over that state (``page_table=`` addresses the pool)
+* ``encode_cross_kv(params, frames)`` — the enc-dec encoder and each
+  decoder layer's cross K/V, for a request's admission
 
 Decode state is a tree with a stacked leading blocks dim, walked in
 lock-step with the stacked block params.  The serving steps write the
-state IN PLACE and return it (the reference returns a new tree); only
-families ``dense`` are ported, others raise ``NotImplementedError``.
+state IN PLACE and return it (the reference returns a new tree).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -29,10 +32,12 @@ import torch
 from ..configs.base import ArchConfig
 from ..kernels.common import resolve_device
 from . import attention as attn
-from .common import init_params, rms_norm, stack_specs, tree_leaves, tree_map
-from .transformer import (_block_plan, _embed, _logits, block_params,
-                          forward_lm, lm_loss, mlp_forward, require_dense,
-                          stack_param_specs)
+from . import ssm as ssm_mod
+from .common import (PSpec, init_params, rms_norm, stack_specs, tree_leaves,
+                     tree_map)
+from .transformer import (_block_plan, _embed, _logits, block_params, encode,
+                          ffn_forward, forward_encdec, forward_lm, lm_loss,
+                          sinusoid_at, stack_param_specs)
 
 
 def _cache_len(cfg: ArchConfig, context: int) -> int:
@@ -47,7 +52,6 @@ class ModelAPI:
     specs: dict = field(default_factory=dict)
 
     def __post_init__(self):
-        require_dense(self.cfg)
         if not self.specs:
             self.specs = stack_param_specs(self.cfg)
 
@@ -72,38 +76,61 @@ class ModelAPI:
         return lm_loss(params, self.cfg, batch)
 
     def forward(self, params, batch) -> torch.Tensor:
-        return forward_lm(params, self.cfg, batch["tokens"])
+        if self.cfg.is_encdec:
+            return forward_encdec(params, self.cfg, batch["tokens"],
+                                  batch["frames"])
+        return forward_lm(params, self.cfg, batch["tokens"],
+                          batch.get("img_embeds"))
 
     # -- decode ---------------------------------------------------------
     def decode_block_specs(self, batch: int, context: int, paged: Any = None,
                            dtype: Any = None) -> dict:
-        """Decode state of ONE block (unstacked): its KV rings, or with
-        ``paged`` (a :class:`~repro_torch.runtime.kv.PagedKVSpec`) a
-        ``(n_pages, Hkv, page_size, hd)`` pool that slots address through
-        the page table given to the steps.  ``dtype`` overrides the KV
-        storage dtype (default bfloat16): pass the params' dtype to keep a
-        float32 model float32 through the cache."""
+        """Decode state of ONE block (unstacked).  Attention layers hold
+        K/V rings, or with ``paged`` (a
+        :class:`~repro_torch.runtime.kv.PagedKVSpec`) a ``(n_pages, Hkv,
+        page_size, hd)`` pool that slots address through the page table
+        given to the steps; SSM layers hold per-slot recurrent state and
+        cross layers per-slot image K/V (O(1) in context: paging buys
+        nothing).  ``dtype`` overrides the KV and conv-ring dtype
+        (default bfloat16): pass the params' dtype to keep a float32
+        model float32 through the cache.  The cross K/V stays bfloat16,
+        as in the reference."""
 
-        kinds, _ = _block_plan(self.cfg)
-        if paged is not None:
-            kv = attn.kv_pool_specs(self.cfg, paged.n_pages, paged.page_size,
-                                    dtype=dtype)
-        else:
-            kv = attn.kv_cache_specs(self.cfg, batch,
-                                     _cache_len(self.cfg, context),
-                                     dtype=dtype)
-        return {f"{i}_{kind}": {"kv": kv} for i, kind in enumerate(kinds)}
+        cfg = self.cfg
+        kinds, _ = _block_plan(cfg)
+        per_block: dict[str, Any] = {}
+        for i, kind in enumerate(kinds):
+            entry: dict[str, Any] = {}
+            if kind in ("dense", "moe", "hybrid", "encoder"):
+                entry["kv"] = (
+                    attn.kv_pool_specs(cfg, paged.n_pages, paged.page_size,
+                                       dtype=dtype) if paged is not None
+                    else attn.kv_cache_specs(cfg, batch,
+                                             _cache_len(cfg, context),
+                                             dtype=dtype))
+            if kind in ("ssm", "hybrid"):
+                entry["ssm"] = ssm_mod.ssm_state_specs(cfg, batch,
+                                                       dtype=dtype)
+            if kind == "cross":
+                entry["enc_kv"] = _cross_kv_specs(cfg, batch,
+                                                  cfg.n_img_tokens)
+            per_block[f"{i}_{kind}"] = entry
+        return per_block
 
     def decode_state_specs(self, batch: int, context: int, paged: Any = None,
                            dtype: Any = None) -> dict:
-        _, n_blocks = _block_plan(self.cfg)
+        cfg = self.cfg
+        _, n_blocks = _block_plan(cfg)
         per_block = self.decode_block_specs(batch, context, paged, dtype)
-        return {"blocks": stack_specs(per_block, n_blocks)}
+        state: dict[str, Any] = {"blocks": stack_specs(per_block, n_blocks)}
+        if cfg.is_encdec:
+            state["xattn"] = stack_specs(
+                _cross_kv_specs(cfg, batch, cfg.enc_seq), cfg.n_layers)
+        return state
 
     def init_decode_state(self, batch: int, context: int, paged: Any = None,
                           dtype: Any = None, device=None):
-        """Zeroed KV rings (or pool) on ``device`` (``cuda:0`` by
-        default)."""
+        """Zeroed state on ``device`` (``cuda:0`` by default)."""
 
         dev = resolve_device(device)
         specs = self.decode_state_specs(batch, context, paged, dtype)
@@ -117,52 +144,51 @@ class ModelAPI:
         PLACE.
 
         ``cur_len`` is a scalar token count or a (B,) vector of per-slot
-        counts.  ``active`` ((B,) bool, default all) gates the KV writes
-        per slot: an idle or prefilling slot of a serving batch keeps its
-        ring (or the pool) untouched (its logits are garbage the caller
-        discards).  ``page_table`` ((B, M) int32, -1 = unallocated)
-        switches the state to the paged pool layout."""
+        counts.  ``active`` ((B,) bool, default all) gates every write per
+        slot (KV, recurrent state): an idle or prefilling slot of a
+        serving batch keeps its state untouched (its logits are garbage
+        the caller discards).  ``page_table`` ((B, M) int32, -1 =
+        unallocated) switches the attention state to the paged pool
+        layout."""
 
         cfg = self.cfg
-        kinds, n_blocks = _block_plan(cfg)
         x = _embed(params, tokens)                          # (B, 1, d)
         B = tokens.shape[0]
         cur_len = attn.per_slot(cur_len, B, x.device)
-        writes = None
-        if page_table is not None:
+        if cfg.is_encdec:
+            x = x + sinusoid_at(cur_len[:, None], cfg.d_model, x.dtype)
+        if page_table is None:
+            def attend(p, h, kv):
+                return attn.decode_attention(p, cfg, h, kv, cur_len,
+                                             window=cfg.window,
+                                             active=active)[0]
+        else:
             if active is None:
                 active = torch.ones(B, dtype=torch.bool, device=x.device)
-            writes = attn.paged_writes(page_table, cur_len[:, None],
-                                       active[:, None],
-                                       self._page_size(state))
-        for i in range(n_blocks):
-            bp = block_params(params["blocks"], i)
-            cache = block_params(state["blocks"], i)
-            for j, kind in enumerate(kinds):
-                key = f"{j}_{kind}"
-                p, c = bp[key], cache[key]
-                h = rms_norm(x, p["ln1"])
-                if page_table is None:
-                    a, _ = attn.decode_attention(p["attn"], cfg, h, c["kv"],
-                                                 cur_len, window=cfg.window,
-                                                 active=active)
-                else:
-                    a, _ = attn.decode_attention_paged(
-                        p["attn"], cfg, h, c["kv"], page_table, cur_len,
-                        writes, window=cfg.window)
-                x = x + a
-                x = x + mlp_forward(p["ffn"], cfg, rms_norm(x, p["ln2"]))
+            writes = self._paged_writes(state, page_table, cur_len[:, None],
+                                        active[:, None])
+
+            def attend(p, h, kv):
+                return attn.decode_attention_paged(
+                    p, cfg, h, kv, page_table, cur_len, writes,
+                    window=cfg.window)[0]
+
+        def recur(p, h, st):
+            return ssm_mod.ssm_decode_step(p, cfg, h, st, active)[0]
+
+        x = self._walk(params, state, x, attend, recur)
         return _logits(params, cfg, x)[:, 0], state
 
     def prefill_step(self, params, state, tokens: torch.Tensor, positions,
                      lengths=None, page_table: Any = None):
         """Chunked serving-side prefill: advance a CHUNK of prompt tokens
-        per call against the decode caches, writing them IN PLACE.
+        per call against the decode state, writing it IN PLACE.
 
         tokens: (B, T), one chunk per slot; positions: (B,) per-slot count
         of tokens already in the cache; lengths: (B,) valid tokens of this
         chunk per slot (default: all T).  Slots with length 0 (decoding
-        or idle while others prefill) are untouched.
+        or idle while others prefill) are untouched: padding tokens
+        neither write the KV nor advance the SSM state.
 
         Returns ``(logits (B, V), state)`` where each slot's logits are
         read at its LAST valid chunk token."""
@@ -187,8 +213,9 @@ class ModelAPI:
         prefix with ``prefill_step``.  Here the chunk's keys are attended
         and never stored (with a ``page_table``, they are placed in the
         gathered copies of the slot's pages, never in the shared pool),
-        so the returned state is the one given, untouched.  Positions
-        past ``lengths`` hold garbage logits."""
+        and the recurrence runs on its own tensors, so the returned state
+        is the one given, untouched.  Positions past ``lengths`` hold
+        garbage logits."""
 
         x, state, _ = self._chunk_forward(params, state, tokens, positions,
                                           lengths, page_table, write=False)
@@ -197,22 +224,50 @@ class ModelAPI:
     def _chunk_forward(self, params, state, tokens, positions, lengths,
                        page_table, *, write: bool):
         """Shared multi-token cached forward under ``prefill_step`` and
-        ``verify_step``: embed + chunk attention over the blocks.
-        Returns ``(hidden (B, T, d), state, lengths (B,))``."""
+        ``verify_step``: embed + chunk attention and recurrence over the
+        blocks.  Returns ``(hidden (B, T, d), state, lengths (B,))``."""
 
         cfg = self.cfg
-        kinds, n_blocks = _block_plan(cfg)
         B, T = tokens.shape
         x = _embed(params, tokens)                          # (B, T, d)
         positions = attn.per_slot(positions, B, x.device)
         lengths = attn.per_slot(T if lengths is None else lengths, B,
                                 x.device)
-        writes = None
-        if page_table is not None:
-            t_idx = torch.arange(T, device=x.device)[None, :]
-            writes = attn.paged_writes(page_table, positions[:, None] + t_idx,
-                                       t_idx < lengths[:, None],
-                                       self._page_size(state))
+        t_idx = torch.arange(T, device=x.device)[None, :]
+        valid = t_idx < lengths[:, None]                    # (B, T)
+        if cfg.is_encdec:
+            x = x + sinusoid_at(positions[:, None] + t_idx, cfg.d_model,
+                                x.dtype)
+        if page_table is None:
+            def attend(p, h, kv):
+                return attn.decode_attention_chunked(
+                    p, cfg, h, kv, positions, lengths, window=cfg.window,
+                    write=write)[0]
+        else:
+            writes = self._paged_writes(state, page_table,
+                                        positions[:, None] + t_idx, valid)
+
+            def attend(p, h, kv):
+                return attn.decode_attention_chunked_paged(
+                    p, cfg, h, kv, page_table, positions, writes,
+                    window=cfg.window, write=write)[0]
+
+        def recur(p, h, st):
+            return ssm_mod.ssm_prefill_step(p, cfg, h, st, valid,
+                                            write=write)[0]
+
+        return self._walk(params, state, x, attend, recur), state, lengths
+
+    def _walk(self, params, state, x: torch.Tensor, attend: Callable,
+              recur: Callable) -> torch.Tensor:
+        """The cached layer stack: every block's layers in order, with
+        ``attend(p, h, kv)`` for self attention over the block's cache
+        and ``recur(p, h, ssm_state)`` for the SSM recurrence; cross
+        layers (and the enc-dec cross layer after each decoder block)
+        attend their precomputed K/V."""
+
+        cfg = self.cfg
+        kinds, n_blocks = _block_plan(cfg)
         for i in range(n_blocks):
             bp = block_params(params["blocks"], i)
             cache = block_params(state["blocks"], i)
@@ -220,25 +275,66 @@ class ModelAPI:
                 key = f"{j}_{kind}"
                 p, c = bp[key], cache[key]
                 h = rms_norm(x, p["ln1"])
-                if page_table is None:
-                    a, _ = attn.decode_attention_chunked(
-                        p["attn"], cfg, h, c["kv"], positions, lengths,
-                        window=cfg.window, write=write)
-                else:
-                    a, _ = attn.decode_attention_chunked_paged(
-                        p["attn"], cfg, h, c["kv"], page_table, positions,
-                        writes, window=cfg.window, write=write)
-                x = x + a
-                x = x + mlp_forward(p["ffn"], cfg, rms_norm(x, p["ln2"]))
-        return x, state, lengths
+                if kind in ("dense", "moe", "encoder"):
+                    x = x + attend(p["attn"], h, c["kv"])
+                elif kind == "hybrid":
+                    a = attend(p["attn"], h, c["kv"])
+                    m = recur(p["ssm"], h, c["ssm"])
+                    x = x + p["mix"][0] * a + p["mix"][1] * m
+                elif kind == "ssm":
+                    x = x + recur(p["ssm"], h, c["ssm"])
+                elif kind == "cross":
+                    a = attn.decode_cross_attention(p["xattn"], cfg, h,
+                                                    c["enc_kv"])
+                    x = x + torch.tanh(p["gate"]).to(x.dtype) * a
+                x = ffn_forward(p, cfg, kind, x)
+            if cfg.is_encdec:
+                xp = block_params(params["xattn_blocks"], i)
+                x = x + attn.decode_cross_attention(
+                    xp["x"], cfg, rms_norm(x, xp["ln_x"]),
+                    block_params(state["xattn"], i))
+        return x
+
+    def encode_cross_kv(self, params, frames: torch.Tensor) -> dict:
+        """Enc-dec serving prefill: run the encoder over frames (B, Senc,
+        d) and project each decoder layer's cross-attention K/V.  Returns
+        {"k", "v"}: (L, B, Hkv, Senc, hd)."""
+
+        cfg = self.cfg
+        assert cfg.is_encdec
+        enc = encode(params, cfg, frames)
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            xp = block_params(params["xattn_blocks"], i)["x"]
+            k = torch.einsum("bsd,dhk->bhsk", enc, xp["wk"])
+            if "k_norm" in xp:
+                k = rms_norm(k, xp["k_norm"])
+            ks.append(k)
+            vs.append(torch.einsum("bsd,dhk->bhsk", enc, xp["wv"]))
+        return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
     @staticmethod
-    def _page_size(state) -> int:
-        """Tokens a page of the paged pool state (stacked blocks first:
-        (L, P, Hkv, page_size, hd))."""
+    def _paged_writes(state, page_table, pos, gate):
+        """:func:`~repro_torch.models.attention.paged_writes` for this
+        step, at the page size of the pool (stacked blocks first:
+        (L, P, Hkv, page_size, hd)); None when no layer attends (a pure
+        SSM stack ignores the page table)."""
 
-        entry = next(iter(state["blocks"].values()))
-        return entry["kv"]["k"].shape[3]
+        pool = next((e["kv"] for e in state["blocks"].values() if "kv" in e),
+                    None)
+        if pool is None:
+            return None
+        return attn.paged_writes(page_table, pos, gate, pool["k"].shape[3])
+
+
+def _cross_kv_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
+    """Per-slot cross-attention K/V of ``seq`` encoder or image tokens
+    (bfloat16, as the reference's)."""
+
+    shape = (batch, cfg.n_kv_heads, seq, cfg.hd)
+    axes = ("cache_batch", "kv_heads", None, None)
+    return {"k": PSpec(shape, axes, init="zeros"),
+            "v": PSpec(shape, axes, init="zeros")}
 
 
 def build_model(cfg: ArchConfig) -> ModelAPI:

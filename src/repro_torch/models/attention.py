@@ -1,8 +1,8 @@
-"""GQA attention (the port's copy of ``repro.models.attention``, dense
-paths): qk-norm / qkv-bias / sliding-window / RoPE variants,
-full-sequence (train / prefill), single-token cached decode, and chunked
-cached prefill over contiguous per-slot KV rings or a shared pool of KV
-pages addressed through per-slot page tables.
+"""GQA attention (the port's copy of ``repro.models.attention``):
+qk-norm / qkv-bias / sliding-window / RoPE variants, full-sequence
+(train / prefill) self and cross attention, single-token cached decode,
+and chunked cached prefill over contiguous per-slot KV rings or a shared
+pool of KV pages addressed through per-slot page tables.
 
 Plain PyTorch math by default; ``use_flash=True`` routes full-sequence
 self-attention through the ``@autotune``d hand-written CUDA flash kernel
@@ -19,8 +19,9 @@ return the same dict they were given.  The paged writes are indexed
 writes of only the gated tokens (:func:`paged_writes`), where the
 reference scatters through a one-hot ``(B, P, page_size)`` match and
 ``argmax``; pages are slot-exclusive and positions unique, so both land
-the same values.  Cross attention is not ported yet (ROADMAP queue 1,
-item 19).
+the same values.  Cross attention (``attention(x_kv=...)``, and
+:func:`decode_cross_attention` against precomputed encoder or image K/V)
+has no RoPE and no mask, and never takes the flash kernel.
 """
 
 from __future__ import annotations
@@ -140,24 +141,28 @@ def attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor, *, causal: bool = True,
               window: int | None = None, x_kv: torch.Tensor | None = None,
               use_flash: bool = False) -> torch.Tensor:
-    """Full-sequence self-attention.
+    """Full-sequence attention.  ``x_kv`` ((B, Skv, d)) switches to cross
+    attention: keys and values from ``x_kv``, no RoPE, no mask.
 
-    ``use_flash=True`` routes the call through the ``@autotune``d flash
-    kernel (block sizes from the tuning cache) when it passes the gate
-    and ``positions == arange(S)``; otherwise the plain math runs."""
+    ``use_flash=True`` routes self-attention through the ``@autotune``d
+    flash kernel (block sizes from the tuning cache) when it passes the
+    gate and ``positions == arange(S)``; otherwise the plain math runs."""
 
-    if x_kv is not None:
-        raise NotImplementedError(
-            "cross attention is not ported yet (ROADMAP queue 1, item 19)")
     B, S, d = x.shape
-    q, k, v = _project_qkv(p, cfg, x, x)
-    if cfg.use_rope:
+    cross = x_kv is not None
+    xkv = x_kv if cross else x
+    q, k, v = _project_qkv(p, cfg, x, xkv)
+    if cfg.use_rope and not cross:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
 
-    if use_flash and _flash_supported(q) \
+    if cross:
+        mask = torch.ones((1, 1, S, xkv.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        o = _sdpa(q, k, v, mask, cfg.hd ** -0.5)
+    elif use_flash and _flash_supported(q) \
             and _positions_standard(positions, S):
         from ..kernels.flash_attention.ops import flash_attention
         # window only applies under causality in the plain paths; match
@@ -498,8 +503,25 @@ def decode_attention_paged(p: dict, cfg: ArchConfig, x: torch.Tensor,
                                           cur_len, writes, window=window)
 
 
+def decode_cross_attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                           enc_kv: dict) -> torch.Tensor:
+    """Cross attention of x (B, T, d) against precomputed K/V
+    (``enc_kv["k"/"v"]``: (B, Hkv, Skv, hd)), every key visible."""
+
+    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"])
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"])
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    k, v = _repeat_kv(enc_kv["k"], n_rep), _repeat_kv(enc_kv["v"], n_rep)
+    mask = torch.ones((1, 1, 1, k.shape[2]), dtype=torch.bool,
+                      device=x.device)
+    o = _sdpa(q, k, v, mask, cfg.hd ** -0.5)
+    return torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+
+
 __all__ = ["attn_specs", "attention", "decode_attention",
            "decode_attention_chunked", "decode_attention_paged",
            "decode_attention_chunked_paged", "kv_cache_specs",
-           "kv_pool_specs", "paged_writes", "per_slot", "NEG_INF",
+           "kv_pool_specs", "paged_writes", "per_slot",
+           "decode_cross_attention", "NEG_INF",
            "Q_CHUNK_THRESHOLD", "Q_CHUNK"]

@@ -1,0 +1,133 @@
+"""Mixture-of-Experts layer (the port's copy of ``repro.models.moe``):
+token-choice top-k routing with a per-row capacity and a scatter-based
+dispatch.
+
+Each batch row is its own group: tokens compete for an expert's ``C``
+slots only within their sequence, in token order.  Kept (token, choice)
+pairs are scattered into an ``E·C + 1``-row buffer whose last row takes
+every dropped pair (the trash row), the experts run as batched products,
+and the outputs are gathered back, gated by the renormalized top-k
+router weights.  ``moe_forward_einsum`` is the one-hot dispatch oracle
+for small shapes.
+
+``torch.topk`` does not promise ``lax.top_k``'s lowest-index-first
+order among equal logits; the router logits are f32 products of
+continuous weights and activations, so exact ties do not occur outside
+constructed inputs.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from .common import PSpec
+
+
+def moe_specs(cfg: ArchConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    E = cfg.moe.num_experts
+    specs = {
+        "router": PSpec((d, E), ("embed", "experts"), dtype=torch.float32),
+        "wg": PSpec((E, d, f), ("experts", "embed", "expert_mlp")),
+        "wu": PSpec((E, d, f), ("experts", "embed", "expert_mlp")),
+        "wd": PSpec((E, f, d), ("experts", "expert_mlp", "embed")),
+    }
+    if cfg.moe.shared_experts:
+        specs["shared_wg"] = PSpec((d, f), ("embed", "mlp"))
+        specs["shared_wu"] = PSpec((d, f), ("embed", "mlp"))
+        specs["shared_wd"] = PSpec((f, d), ("mlp", "embed"))
+    return specs
+
+
+def capacity(cfg: ArchConfig, tokens: int) -> int:
+    m = cfg.moe
+    c = int(m.top_k * tokens * m.capacity_factor / m.num_experts)
+    return max(8, -(-c // 8) * 8)  # padded to 8, as the reference
+
+
+def _route(cfg: ArchConfig, p: dict, x2: torch.Tensor):
+    """x2: (T, d) -> gates (T, k) f32, idx (T, k) int64."""
+
+    logits = x2.float() @ p["router"].float()
+    top, idx = torch.topk(logits, cfg.moe.top_k, dim=-1)
+    return torch.softmax(top, dim=-1), idx   # renormalized over the top-k
+
+
+def _dispatch(cfg: ArchConfig, p: dict, x: torch.Tensor):
+    """Routing and per-row capacity ranks: (gates (B, S·k), experts
+    (B, S·k), rank within the expert (B, S·k), keep (B, S·k), C)."""
+
+    B, S, d = x.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    C = capacity(cfg, S)
+    gates, idx = _route(cfg, p, x.reshape(B * S, d))
+    flat_e = idx.reshape(B, S * k)
+    onehot = F.one_hot(flat_e, E)                        # (B, S*k, E)
+    pos = torch.cumsum(onehot, dim=1) - onehot
+    my_pos = torch.take_along_dim(pos, flat_e[..., None], dim=2)[..., 0]
+    return gates.reshape(B, S * k), flat_e, my_pos, my_pos < C, C
+
+
+def _experts(p: dict, xd: torch.Tensor) -> torch.Tensor:
+    """(B, E, C, d) dispatched tokens through each expert's SwiGLU."""
+
+    h = F.silu(torch.einsum("becd,edf->becf", xd, p["wg"])) * \
+        torch.einsum("becd,edf->becf", xd, p["wu"])
+    return torch.einsum("becf,efd->becd", h, p["wd"])
+
+
+def _shared(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["shared_wg"]) * (x @ p["shared_wu"])) @ \
+        p["shared_wd"]
+
+
+def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d)."""
+
+    B, S, d = x.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    gates, flat_e, my_pos, keep, C = _dispatch(cfg, p, x)
+    slot = torch.where(keep, flat_e * C + my_pos, E * C)  # E*C: trash row
+
+    x_rep = torch.repeat_interleave(x, k, dim=1)          # (B, S*k, d)
+    xd = torch.zeros((B, E * C + 1, d), dtype=x.dtype, device=x.device)
+    xd.scatter_add_(1, slot[..., None].expand(-1, -1, d), x_rep)
+    yo = _experts(p, xd[:, :E * C].reshape(B, E, C, d))
+
+    flat = yo.reshape(B, E * C, d)
+    picked = torch.take_along_dim(
+        flat, torch.clamp(slot, 0, E * C - 1)[..., None], dim=1)
+    picked = picked * (keep[..., None] * gates[..., None]).to(x.dtype)
+    y = picked.reshape(B, S, k, d).sum(dim=2)
+    if cfg.moe.shared_experts:
+        y = y + _shared(p, x)
+    return y
+
+
+def moe_forward_einsum(p: dict, cfg: ArchConfig,
+                       x: torch.Tensor) -> torch.Tensor:
+    """One-hot dispatch oracle (small shapes only), with the per-row
+    capacity of the scatter path."""
+
+    B, S, d = x.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    gates, flat_e, my_pos, keep, C = _dispatch(cfg, p, x)
+    # dispatch/combine tensors (B, S*k, E, C)
+    disp = (F.one_hot(flat_e, E).float()[..., None] *
+            F.one_hot(torch.clamp(my_pos, 0, C - 1), C).float()[:, :, None])
+    disp = disp * keep[..., None, None]
+
+    x_rep = torch.repeat_interleave(x, k, dim=1)          # (B, S*k, d)
+    xd = torch.einsum("btec,btd->becd", disp.to(x.dtype), x_rep)
+    yo = _experts(p, xd)
+    comb = disp * gates[..., None, None]
+    y = torch.einsum("btec,becd->btd", comb.to(x.dtype), yo)
+    y = y.reshape(B, S, k, d).sum(dim=2)
+    if cfg.moe.shared_experts:
+        y = y + _shared(p, x)
+    return y
+
+
+__all__ = ["moe_specs", "moe_forward", "moe_forward_einsum", "capacity"]

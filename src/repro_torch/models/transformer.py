@@ -1,12 +1,26 @@
-"""Decoder stack of the dense family (the port's copy of
-``repro.models.transformer``): pre-norm attention + MLP layers over
-stacked per-layer parameters, logits, forward and loss.
+"""The layer stacks of every family (the port's copy of
+``repro.models.transformer``): layers over stacked per-layer parameters,
+logits, forward and loss.
+
+Layer kinds, picked per family:
+
+* dense   — pre-norm attention + MLP
+* moe     — attention + MoE FFN (mixtral every layer; llama4 every 2nd)
+* ssm     — Mamba2 SSD block + (optional) MLP; d_ff == 0 -> pure SSD
+* hybrid  — parallel attention (SWA) and SSD heads on the same input,
+            mixed by a learned per-dim ``(2, d)`` weight (hymba)
+* cross   — gated cross attention to image embeddings every N layers
+            (llama-3.2-vision), the gate f32 under ``tanh``
+* enc-dec — whisper: bidirectional encoder over frame embeddings, causal
+            decoder with a cross-attention layer after each block
+            (sinusoidal positions)
 
 The reference scans its stacked blocks with ``lax.scan``; here a Python
 loop indexes the stacked tensors (``blocks[...][i]`` is a view, no
-copy).  Forward only: the JAX flash kernel has no backward, and training
-is a later slice.  Families other than ``dense`` raise
-``NotImplementedError`` (ROADMAP queue 1, item 19).
+copy).  Forward only: the flash kernel has no backward, and training is
+a later slice.  Frame and image embeddings are cast to the residual
+stream's dtype (the reference promotes mixed dtypes instead; with the
+params' dtype given, both compute the same).
 """
 
 from __future__ import annotations
@@ -18,17 +32,10 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from . import attention as attn
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .common import (PSpec, rms_norm, softmax_cross_entropy, stack_specs,
-                     tree_map)
-
-_NOT_PORTED = ("the {} family is not ported yet (ROADMAP queue 1, item 19: "
-               "SSM, MoE, hybrid, cross-attention and encoder-decoder "
-               "stacks)")
-
-
-def require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(_NOT_PORTED.format(repr(cfg.family)))
+                     tree_leaves, tree_map)
 
 
 # ---------------------------------------------------------------------------
@@ -65,21 +72,64 @@ def _norm_spec(cfg):
 
 
 def layer_specs(cfg: ArchConfig, kind: str) -> dict:
-    if kind != "dense":
-        raise NotImplementedError(_NOT_PORTED.format(repr(kind)))
-    return {"ln1": _norm_spec(cfg), "attn": attn.attn_specs(cfg),
-            "ln2": _norm_spec(cfg), "ffn": mlp_specs(cfg)}
+    d = cfg.d_model
+    s: dict[str, Any] = {"ln1": _norm_spec(cfg)}
+    if kind in ("dense", "moe", "encoder"):
+        s["attn"] = attn.attn_specs(cfg)
+        s["ln2"] = _norm_spec(cfg)
+        s["ffn"] = moe_mod.moe_specs(cfg) if kind == "moe" else mlp_specs(cfg)
+    elif kind == "ssm":
+        s["ssm"] = ssm_mod.ssm_specs(cfg)
+        if cfg.d_ff:
+            s["ln2"] = _norm_spec(cfg)
+            s["ffn"] = mlp_specs(cfg)
+    elif kind == "hybrid":
+        s["attn"] = attn.attn_specs(cfg)
+        s["ssm"] = ssm_mod.ssm_specs(cfg)
+        s["mix"] = PSpec((2, d), (None, "embed"), init="ones", scale=0.5)
+        s["ln2"] = _norm_spec(cfg)
+        s["ffn"] = mlp_specs(cfg)
+    elif kind == "cross":
+        s["xattn"] = attn.attn_specs(cfg, cross=True)
+        s["gate"] = PSpec((1,), (None,), init="zeros", dtype=torch.float32)
+        s["ln2"] = _norm_spec(cfg)
+        s["ffn"] = mlp_specs(cfg)
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    return s
+
+
+def ffn_forward(p: dict, cfg: ArchConfig, kind: str,
+                x: torch.Tensor) -> torch.Tensor:
+    """The layer's second half: x + FFN(norm(x)) when it has one."""
+
+    if "ffn" not in p:
+        return x
+    h = rms_norm(x, p["ln2"])
+    if kind == "moe":
+        return x + moe_mod.moe_forward(p["ffn"], cfg, h)
+    return x + mlp_forward(p["ffn"], cfg, h)
 
 
 def layer_forward(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor,
                   positions: torch.Tensor, *,
+                  enc_out: torch.Tensor | None = None,
                   causal: bool = True) -> torch.Tensor:
-    if kind != "dense":
-        raise NotImplementedError(_NOT_PORTED.format(repr(kind)))
     h = rms_norm(x, p["ln1"])
-    x = x + attn.attention(p["attn"], cfg, h, positions, causal=causal,
+    if kind in ("dense", "moe", "encoder"):
+        x = x + attn.attention(p["attn"], cfg, h, positions, causal=causal,
+                               window=cfg.window, use_flash=cfg.use_flash)
+    elif kind == "ssm":
+        x = x + ssm_mod.ssm_forward(p["ssm"], cfg, h)
+    elif kind == "hybrid":
+        a = attn.attention(p["attn"], cfg, h, positions, causal=True,
                            window=cfg.window, use_flash=cfg.use_flash)
-    return x + mlp_forward(p["ffn"], cfg, rms_norm(x, p["ln2"]))
+        m = ssm_mod.ssm_forward(p["ssm"], cfg, h)
+        x = x + p["mix"][0] * a + p["mix"][1] * m
+    elif kind == "cross":
+        a = attn.attention(p["xattn"], cfg, h, positions, x_kv=enc_out)
+        x = x + torch.tanh(p["gate"]).to(x.dtype) * a
+    return ffn_forward(p, cfg, kind, x)
 
 
 # ---------------------------------------------------------------------------
@@ -88,10 +138,24 @@ def layer_forward(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor,
 
 
 def _block_plan(cfg: ArchConfig) -> tuple[list[str], int]:
-    """Returns (kinds within one block, number of blocks)."""
+    """Returns (kinds within one block, number of blocks).  The stack is
+    ``n_blocks`` repetitions of the block."""
 
-    require_dense(cfg)
-    return ["dense"], cfg.n_layers
+    if cfg.family in ("dense", "ssm", "hybrid"):
+        return [cfg.family], cfg.n_layers
+    if cfg.family == "moe":
+        every = cfg.moe.every
+        if every == 1:
+            return ["moe"], cfg.n_layers
+        assert cfg.n_layers % every == 0
+        return ["dense"] * (every - 1) + ["moe"], cfg.n_layers // every
+    if cfg.family == "vlm":
+        every = cfg.cross_attn_every
+        assert cfg.n_layers % every == 0
+        return ["dense"] * (every - 1) + ["cross"], cfg.n_layers // every
+    if cfg.family == "audio":
+        return ["dense"], cfg.n_layers      # decoder; encoder built apart
+    raise ValueError(cfg.family)
 
 
 def stack_param_specs(cfg: ArchConfig) -> dict:
@@ -106,6 +170,14 @@ def stack_param_specs(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["unembed"] = PSpec((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+    if cfg.family == "audio":
+        enc_block = {"0_encoder": layer_specs(cfg, "encoder")}
+        specs["enc_blocks"] = stack_specs(enc_block, cfg.encoder_layers)
+        specs["enc_ln_f"] = _norm_spec(cfg)
+        # the decoder's cross attention, one after each decoder block
+        xblock = {"x": attn.attn_specs(cfg, cross=True),
+                  "ln_x": _norm_spec(cfg)}
+        specs["xattn_blocks"] = stack_specs(xblock, cfg.n_layers)
     return specs
 
 
@@ -116,13 +188,16 @@ def block_params(blocks: dict, i: int) -> dict:
 
 
 def _run_blocks(cfg: ArchConfig, blocks: dict, x: torch.Tensor,
-                positions: torch.Tensor, *, causal: bool = True):
-    kinds, n_blocks = _block_plan(cfg)
+                positions: torch.Tensor, *,
+                enc_out: torch.Tensor | None = None, causal: bool = True,
+                kinds: list[str] | None = None) -> torch.Tensor:
+    kinds = kinds or _block_plan(cfg)[0]
+    n_blocks = next(iter(tree_leaves(blocks))).shape[0]
     for i in range(n_blocks):
         bp = block_params(blocks, i)
         for j, kind in enumerate(kinds):
             x = layer_forward(bp[f"{j}_{kind}"], cfg, kind, x, positions,
-                              causal=causal)
+                              enc_out=enc_out, causal=causal)
     return x
 
 
@@ -146,27 +221,81 @@ def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
-    B, S = tokens.shape
-    return torch.arange(S, device=tokens.device).expand(B, S)
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, device=device).expand(B, S)
 
 
-def forward_lm(params: dict, cfg: ArchConfig,
-               tokens: torch.Tensor) -> torch.Tensor:
+def _trunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+           img_embeds: torch.Tensor | None) -> torch.Tensor:
+    x = _embed(params, tokens)
+    if img_embeds is not None:
+        img_embeds = img_embeds.to(x.dtype)
+    return _run_blocks(cfg, params["blocks"], x,
+                       _positions(*tokens.shape, tokens.device),
+                       enc_out=img_embeds)
+
+
+def forward_lm(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+               img_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Decoder-only forward -> logits (B, S, V)."""
 
+    return _logits(params, cfg, _trunk(params, cfg, tokens, img_embeds))
+
+
+def hidden_lm(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+              img_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Decoder trunk up to (and including) the final norm: no logits."""
+
+    return rms_norm(_trunk(params, cfg, tokens, img_embeds), params["ln_f"])
+
+
+def encode(params: dict, cfg: ArchConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """The enc-dec encoder over frame embeddings (B, Senc, d), after its
+    final norm.  Non-causal self-attention: the flash gate takes it only
+    where Senc tiles by 128 (whisper's 1,500 frames do not)."""
+
+    B, Senc, d = frames.shape
+    frames = frames.to(params["embed"].dtype)
+    enc = frames + _sinusoid(Senc, d, frames.dtype, frames.device)
+    enc = _run_blocks(cfg, params["enc_blocks"], enc,
+                      _positions(B, Senc, frames.device), causal=False,
+                      kinds=["encoder"])
+    return rms_norm(enc, params["enc_ln_f"])
+
+
+def forward_encdec(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                   frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style: encode frame embeddings, decode tokens."""
+
+    enc = encode(params, cfg, frames)
+    B, S = tokens.shape
     x = _embed(params, tokens)
-    x = _run_blocks(cfg, params["blocks"], x, _positions(tokens))
+    x = x + _sinusoid(S, cfg.d_model, x.dtype, x.device)
+    positions = _positions(B, S, tokens.device)
+    for i in range(cfg.n_layers):
+        dp = block_params(params["blocks"], i)["0_dense"]
+        xp = block_params(params["xattn_blocks"], i)
+        x = layer_forward(dp, cfg, "dense", x, positions)
+        x = x + attn.attention(xp["x"], cfg, rms_norm(x, xp["ln_x"]),
+                               positions, x_kv=enc)
     return _logits(params, cfg, x)
 
 
-def hidden_lm(params: dict, cfg: ArchConfig,
-              tokens: torch.Tensor) -> torch.Tensor:
-    """Decoder trunk up to (and including) the final norm: no logits."""
+def _sinusoid(S: int, d: int, dtype, device) -> torch.Tensor:
+    """(1, S, d) sinusoidal embeddings of positions 0..S-1."""
 
-    x = _embed(params, tokens)
-    x = _run_blocks(cfg, params["blocks"], x, _positions(tokens))
-    return rms_norm(x, params["ln_f"])
+    return sinusoid_at(torch.arange(S, device=device), d, dtype)[None]
+
+
+def sinusoid_at(pos: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """Sinusoidal embedding at absolute position(s): (...,) positions ->
+    (..., d); callers shape the position grid ((B, 1) per-slot decode,
+    (B, T) chunked prefill)."""
+
+    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    ang = pos.float()[..., None] / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -196,16 +325,20 @@ def _chunked_ce(params: dict, cfg: ArchConfig, h: torch.Tensor,
 
 
 def lm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    if cfg.is_encdec:
+        logits = forward_encdec(params, cfg, batch["tokens"],
+                                batch["frames"])
+        return softmax_cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
     if cfg.loss_seq_chunk:
-        h = hidden_lm(params, cfg, batch["tokens"])
+        h = hidden_lm(params, cfg, batch["tokens"], batch.get("img_embeds"))
         return _chunked_ce(params, cfg, h[:, :-1], batch["labels"][:, 1:],
                            cfg.loss_seq_chunk)
-    logits = forward_lm(params, cfg, batch["tokens"])
+    logits = forward_lm(params, cfg, batch["tokens"], batch.get("img_embeds"))
     return softmax_cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
 
 
 __all__ = [
     "mlp_specs", "mlp_forward", "layer_specs", "layer_forward",
-    "stack_param_specs", "block_params", "forward_lm", "hidden_lm",
-    "lm_loss", "require_dense",
+    "ffn_forward", "stack_param_specs", "block_params", "forward_lm",
+    "forward_encdec", "encode", "hidden_lm", "lm_loss", "sinusoid_at",
 ]

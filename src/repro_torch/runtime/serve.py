@@ -18,7 +18,11 @@ PLACE.  Both steps gate their writes per slot — ``decode_step`` by the
 ``active`` mask of decoding slots, ``prefill_step`` by per-slot chunk
 lengths (0 for every slot not prefilling) — so a prefill tick cannot
 scatter a token into a decoding neighbour's ring, nor a decode tick
-into an idle or prefilling slot's ring.
+into an idle or prefilling slot's ring.  An SSM layer's recurrent state
+is per slot, gated the same way, and zeroed in place when a retired or
+preempted slot takes a new request; an enc-dec request's frames
+(``submit(frames=)``) are encoded at admission into its slot's cross
+K/V.
 
 ``paged=True`` swaps the per-slot rings for a shared pool of
 ``page_size``-token pages (:mod:`repro_torch.runtime.kv`): a request is
@@ -138,8 +142,16 @@ class Server:
         self.state = api.init_decode_state(
             batch, context, self.alloc.spec if paged else None,
             dtype=leaf.dtype, device=self.device)
+        if self.share_prefix and any(
+                "ssm" in entry or "enc_kv" in entry
+                for entry in self.state["blocks"].values()):
+            raise ValueError(
+                "share_prefix=True needs pure-attention decode state: "
+                "SSM/recurrent state at the share point is per-slot and "
+                "has no position index to share through")
         self.slot_req: list[Request | None] = [None] * batch
         self.slot_pos = np.zeros(batch, np.int32)   # per-slot token count
+        self._slot_dirty = np.zeros(batch, bool)    # retired -> stale state
         self._slot_seq = np.zeros(batch, np.int64)  # admission order
         self._seq = 0
         self.deferrals = 0          # paged: evictions forced by page OOM
@@ -168,10 +180,13 @@ class Server:
             obs.attach(self)
 
     # -- API ----------------------------------------------------------------
-    def submit(self, prompt: list[int], max_new: int, *,
-               slo: str = "interactive",
+    def submit(self, prompt: list[int], max_new: int, frames: Any = None,
+               *, slo: str = "interactive",
                deadline: float | None = None) -> Request:
-        """Queue a request.  ``slo`` names its service class and
+        """Queue a request.  ``frames``: an enc-dec model's frame
+        embeddings (enc_seq, d_model) for this request (numpy or a
+        tensor); the encoder runs at admission and its cross K/V fills
+        the request's slot.  ``slo`` names its service class and
         ``deadline`` its absolute driver-clock deadline: policy inputs
         for the scheduler, never read by the engine itself."""
 
@@ -191,6 +206,7 @@ class Server:
                       sum(r is not None for r in self.slot_req),
                       prompt=prompt, max_new=max_new, slo=slo,
                       deadline=deadline)
+        req._frames = frames  # type: ignore[attr-defined]
         self.queue.append(req)
         if self.obs is not None:
             self.obs.on_submit(self, req)
@@ -266,16 +282,20 @@ class Server:
                 self._place(slot, self.queue.pop(idx))
 
     def _place(self, slot: int, req: Request) -> None:
-        """Bind ``req`` to ``slot``: the COW prefix share (paged +
-        ``share_prefix``) and the prefill target, ``len(prompt) +
-        len(out)``, so a preempted request re-prefills its generated
-        tokens too and resumes where it left off.  A reused ring or page
-        keeps the previous occupant's K/V: positions at or past the new
-        request's own count are masked until overwritten."""
+        """Bind ``req`` to ``slot``: recurrent-state hygiene, the COW
+        prefix share (paged + ``share_prefix``), the prefill target,
+        ``len(prompt) + len(out)`` (so a preempted request re-prefills
+        its generated tokens too and resumes where it left off), and an
+        enc-dec request's cross K/V.  A reused ring or page keeps the
+        previous occupant's K/V: positions at or past the new request's
+        own count are masked until overwritten."""
 
         self.slot_req[slot] = req
         self._slot_seq[slot] = self._seq
         self._seq += 1
+        if self._slot_dirty[slot]:
+            self._reset_recurrent_state(slot)
+            self._slot_dirty[slot] = False
         req._prefill_target = (len(req.prompt)  # type: ignore[attr-defined]
                                + len(req.out))
         start = 0
@@ -288,8 +308,37 @@ class Server:
                 self.shared_tokens += shared
         self.slot_pos[slot] = start
         req._cursor = start  # type: ignore[attr-defined]
+        frames = getattr(req, "_frames", None)
+        if self.api.cfg.is_encdec and frames is not None:
+            self._encode(slot, frames)
         if self.obs is not None:
             self.obs.on_admit(self, req, slot, start)
+
+    def _encode(self, slot: int, frames: Any) -> None:
+        """Run the encoder over one request's frames and write every
+        decoder layer's cross K/V into ``slot``, in place (the slot is
+        this request's alone)."""
+
+        leaf = self.params["embed"]
+        if isinstance(frames, torch.Tensor):
+            frames = frames.to(device=leaf.device, dtype=leaf.dtype)
+        else:
+            frames = torch.tensor(np.asarray(frames), dtype=leaf.dtype,
+                                  device=leaf.device)
+        kv = self.api.encode_cross_kv(self.params, frames[None])
+        for name, buf in self.state["xattn"].items():
+            buf[:, slot] = kv[name][:, 0].to(buf.dtype)
+
+    def _reset_recurrent_state(self, slot: int) -> None:
+        """Zero a reused slot's SSM state (h and the conv ring), in place:
+        position masking hides a reused ring's stale K/V, but the
+        recurrence has no position, so a new request must not start from
+        the previous one's state.  Only the recurrent leaves of ``slot``
+        are touched (dense models pay nothing)."""
+
+        for entry in self.state["blocks"].values():
+            for buf in entry.get("ssm", {}).values():
+                buf[:, slot] = 0
 
     def _backed_prefix(self, slot: int) -> int:
         """Tokens from position 0 whose pages ``slot`` still maps (the SWA
@@ -343,6 +392,7 @@ class Server:
             self.alloc.release(slot)
         self.slot_req[slot] = None
         self.slot_pos[slot] = 0
+        self._slot_dirty[slot] = True
         if self.obs is not None:
             self.obs.on_preempt(self, req, slot, reason)
 
@@ -414,6 +464,7 @@ class Server:
             req.done = True
             self.completed.append(req)
             self.slot_req[slot] = None
+            self._slot_dirty[slot] = True
             if self.paged:
                 self.alloc.release(slot)
             if self.obs is not None:

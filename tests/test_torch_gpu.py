@@ -522,6 +522,39 @@ def test_flash_kernel_at_the_model_shape(cuda):
                                    atol=2e-2)
 
 
+def test_flash_kernel_at_hymba_window(cuda):
+    """hymba-1.5b's attention: 25 query heads over 5 KV heads at D = 64,
+    a 1,024-token window, bf16.  The kernel alone at (1, 25, 4096, 64)
+    and through the model's attention (GQA repeat, RoPE) with
+    use_flash, each against the plain version, rel L2 <= 1e-2."""
+
+    q, k, v = _qkv((1, 25, 4096, 64), torch.bfloat16, cuda, seed=9)
+    before = flash_kernel.launches
+    got = flash_attention(q, k, v, causal=True, window=1024)
+    assert flash_kernel.launches == before + 1
+    want = attention_ref(q, k, v, causal=True, window=1024)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert _rel_l2(got, want) <= FLASH_REL_L2
+
+    cfg = get_config("hymba-1.5b")
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window) == \
+        (25, 5, 64, 1024)
+    from repro_torch.models.attention import attn_specs
+    from repro_torch.models.common import init_params
+    g = torch.Generator(device=cuda)
+    g.manual_seed(10)
+    p = init_params(attn_specs(cfg), g, cuda)
+    x = torch.randn(1, 2048, cfg.d_model, generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    pos = torch.arange(2048, device=cuda)[None]
+    before = flash_kernel.launches
+    got = attention(p, cfg, x, pos, window=cfg.window, use_flash=True)
+    assert flash_kernel.launches == before + 1
+    want = attention(p, cfg, x, pos, window=cfg.window)
+    assert _rel_l2(got, want) <= FLASH_REL_L2
+
+
 def test_flash_kernel_raises_for_an_uncompiled_head_dim(cuda):
     q, k, v = _qkv((1, 2, 128, 96), torch.bfloat16, cuda, seed=3)
     before = flash_kernel.launches
@@ -574,6 +607,55 @@ def test_reduced_forward_on_the_card_equals_the_cpu_port(cuda):
     req = server.submit(toks[0, :20].tolist(), max_new=3)
     server.run_until_drained()
     assert req.done and len(req.out) == 3
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "mamba2-2.7b",
+                                  "mixtral-8x22b", "whisper-medium",
+                                  "llama-3.2-vision-90b"])
+def test_reduced_family_on_the_card_equals_the_cpu_port(cuda, name):
+    """Each other family reduced with D = 64 and use_flash, f32 weights:
+    the card's forward (flash where the gate takes it) against the CPU
+    port's (the kernel's plain version), and a Server drain on the card
+    against one on the CPU, token for token."""
+
+    cfg = get_config(name).reduced().replace(head_dim=64, use_flash=True,
+                                             logits_dtype="float32")
+    api = build_model(cfg)
+    params = tree_map(lambda t: t.float(), api.init(0, device="cpu"))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    g = torch.Generator()
+    g.manual_seed(11)
+    toks = torch.randint(0, cfg.vocab, (2, 128), generator=g)
+    batch = {"tokens": toks}
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(2, cfg.enc_seq, cfg.d_model,
+                                      generator=g) * 0.3
+    if cfg.family == "vlm":
+        batch["img_embeds"] = torch.randn(2, cfg.n_img_tokens, cfg.d_model,
+                                          generator=g) * 0.3
+    before = flash_kernel.launches
+    # f32 stays f32 in the SSM's conv too
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got = api.forward(on_card, {k: v.to(cuda)
+                                    for k, v in batch.items()})
+    attn_layers = {"mamba2-2.7b": 0, "llama-3.2-vision-90b": 2}
+    assert flash_kernel.launches == before + attn_layers.get(
+        name, cfg.n_layers)
+    want = api.forward(params, batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+    def drain(p, device):
+        server = Server(api, p, batch=2, context=64, prefill_chunk=8)
+        frames = batch.get("frames")
+        reqs = [server.submit(toks[i, :10 + 5 * i].tolist(), max_new=4,
+                              frames=None if frames is None
+                              else frames[i].to(device))
+                for i in range(2)]
+        server.run_until_drained()
+        return [r.out for r in reqs]
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        assert drain(on_card, cuda) == drain(params, "cpu")
 
 
 def _f32_model(cuda):

@@ -149,12 +149,6 @@ def test_params_round_trip_is_exact():
     assert tree["embed"].dtype == torch.float32
 
 
-def test_other_families_raise():
-    for name in ("mamba2-2.7b", "mixtral-8x22b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(get_config(name).reduced())
-
-
 # ---------------------------------------------------------------------------
 # full-sequence attention
 # ---------------------------------------------------------------------------

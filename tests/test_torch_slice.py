@@ -156,7 +156,8 @@ for name in ("repro_torch.obs", "repro_torch.obs.metrics",
              "repro_torch.tune.artifact", "repro_torch.tune.cli",
              "repro_torch.tune.__main__", "repro_torch.verify.lint",
              "repro_torch.verify.cli", "repro_torch.verify.__main__",
-             "repro_torch.runtime.tunables", "repro_torch.runtime.workload"):
+             "repro_torch.runtime.tunables", "repro_torch.runtime.workload",
+             "repro_torch.models.ssm", "repro_torch.models.moe"):
     assert name in names, name
 print(len(names))
 """
