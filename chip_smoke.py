@@ -3,8 +3,9 @@
 loop, the dense model path, the paged serving path (qwen1.5-4b at full
 width), the model checker, the serving tunables, the card's calibration
 with the Server observed on it, the fleet rollout and verification
-CLIs, and the other model families (hymba, mamba2, whisper, mixtral and
-llama-3.2-vision at full width, the last two cut in depth).
+CLIs, the other model families (hymba, mamba2, whisper, mixtral and
+llama-3.2-vision at full width, the last two cut in depth), and
+training (smollm-135m at full width).
 
     python3 chip_smoke.py
 
@@ -131,7 +132,23 @@ Each phase prints one JSON line:
    mixtral-8x22b at 2 of 56 layers (the f32 cut with no drops: prefill
    and decode logits against the forward's); (e) llama-3.2-vision-90b at
    one block of 5 of 100 layers, with 1,024 image embeddings; then each
-   kernel's launches over the five paths.
+   kernel's launches over the five paths;
+13. ``train`` — smollm-135m trained at full width (30 layers, d 576,
+   134.5 M params) in bf16 at B = 8, S = 2048, after phase 12 released
+   its weights: (a) one ``build_train_step`` step of an f32 cut of 2
+   layers on the card against the plain CPU step from the same state,
+   and at full width ``microbatches=4`` against ``microbatches=1``; (b)
+   every (microbatches, remat) point of the machine model's one-card
+   lattice, 1 warm and 3 timed steps, measured beside ``step_time``'s
+   modeled ms with peak memory (``oom`` recorded), the modeled pick, the
+   measured best and the pick's rank; (c) ``python -m
+   repro_torch.launch.train`` for 60 steps with checkpoints every 20
+   and a failure injected at 30 (one restart, the loss falls, the last
+   checkpoint read back; tokens/s and 6·N·tokens over time over phase
+   10's fitted peak); (d) the same with ``--tune``, whose pick must be
+   (b)'s modeled pick and must have run; (e) flash attention under a
+   gradient: one launch, then ``backward`` raises; then each kernel's
+   launches over (b)-(e).
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -326,6 +343,32 @@ SCAN_REL_TOL = 1e-3
 # forward's, rel L2 each
 MOE_CAPACITY = 16.0
 MOE_REL_TOL = 1e-3
+# phase 13: smollm-135m trained at full width in bf16, B = 8, S = 2048
+# (the model of the reference's examples/train_smollm.py)
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_LR = 3e-3
+# (a) the card's step against the plain CPU step on an f32 cut of 2
+# layers at B = 1, S = 512 (the CPU step at full size takes minutes):
+# loss rel 1e-4; params within 1e-5 + 1e-4 relative but at most 0.1 % of
+# the elements, each within 4 lr (an Adam step of a gradient within a few
+# eps of 0 moves by ~lr whatever that gradient's rounding)
+TRAIN_CUT = 2
+TRAIN_CUT_SHAPE = (1, 512)
+TRAIN_CUT_TOL = {"loss_rel": 1e-4, "atol": 1e-5, "rtol": 1e-4,
+                 "outlier_share": 1e-3}
+# microbatches 4 against 1 at full width: the reference's own tolerance
+# (tests/test_system.py): loss rel 2e-2, params max abs 5e-2
+TRAIN_MB_TOL = {"loss_rel": 2e-2, "params_abs": 5e-2}
+# (b) the lattice: every (microbatches, remat), 1 warm and 3 timed steps
+TRAIN_MB = (1, 2, 4, 8)
+TRAIN_REMAT = ("none", "dots", "full")
+TRAIN_TIMED = 3
+# (c)/(d) the training driver as a user runs it
+TRAIN_DRIVER = ["--arch", TRAIN_ARCH, "--preset", "full", "--batch",
+                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
+# (e) flash under a gradient at smollm's attention shape, one layer
+FLASH_GRAD_SHAPE = (1, 9, TRAIN_SEQ, 64)
 
 
 # runs ``python -m <argv[1]> <argv[2:]>`` and, at exit, writes the
@@ -3152,6 +3195,335 @@ def families(dev, gen, counters) -> dict:
     return {"launches": total}
 
 
+def _train_state_to(state, dev):
+    """A train state's tensors on ``dev`` (a copy)."""
+
+    from repro_torch.models.common import tree_map
+    to = lambda t: t.to(dev)
+    opt = state.opt
+    return type(state)(tree_map(to, state.params), type(opt)(
+        to(opt.step), tree_map(to, opt.m), tree_map(to, opt.v)),
+        None if state.ef_residual is None
+        else tree_map(to, state.ef_residual))
+
+
+def _param_errors(got, want) -> dict:
+    """Max abs error over the params, and the share of elements beyond
+    ``TRAIN_CUT_TOL``'s atol + rtol."""
+
+    from repro_torch.models.common import tree_leaves
+    err_max, n_out, n = 0.0, 0, 0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        w = w.detach().cpu().float()
+        err = (g.detach().cpu().float() - w).abs()
+        err_max = max(err_max, float(err.max()))
+        n += err.numel()
+        n_out += int((err > TRAIN_CUT_TOL["atol"]
+                      + TRAIN_CUT_TOL["rtol"] * w.abs()).sum())
+    return {"max_abs_err": err_max, "outliers": n_out, "elements": n}
+
+
+def train(dev, gen, counters, peak_flops: float) -> dict:
+    """Phase 13: smollm-135m trained at full width on the card, bf16,
+    B = 8, S = 2048 (counts set to 0 just before each path, read just
+    after):
+
+    (a) one ``build_train_step`` step of an f32 cut (2 layers) on the card
+    against the plain CPU step from the same state, then at full width
+    ``microbatches=4`` against ``microbatches=1``;
+    (b) the paper's method on training: every (microbatches, remat) point
+    of the machine model's one-card lattice, 1 warm and 3 timed steps
+    each, measured ms beside ``step_time``'s modeled ms under the active
+    spec, their ratio and peak memory (a point that runs out of memory is
+    recorded as ``oom``); then the modeled pick, the measured best and
+    the pick's rank;
+    (c) ``python -m repro_torch.launch.train ... --steps 60 --ckpt-every
+    20 --inject-failure 30`` as a subprocess: one restart, the loss
+    falls, the last checkpoint read back; tokens/s and 6·N·tokens over
+    time over phase 10's measured peak;
+    (d) the same with ``--tune --steps 20``: its ``[tune] config:`` line
+    is (b)'s modeled pick, which must have fit;
+    (e) flash attention under a gradient at smollm's attention shape: the
+    kernel launches once, ``backward`` raises.
+
+    Returns the launches of each kernel over (b)-(e)."""
+
+    import gc
+    import os
+    import re
+
+    import torch
+    from repro_torch.calibrate import get_platform_spec
+    from repro_torch.checkpoint import available_steps, load_checkpoint
+    from repro_torch.checkpoint.store import _flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.tpu_machine import (TPUConfig, TPUWorkload,
+                                              hbm_fits, step_time,
+                                              tune_distributed)
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.runtime import (TrainConfig, build_train_step,
+                                     init_train_state)
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    total = [0] * len(counters)
+    fk = counters[-1]
+
+    def start_path():
+        for c in counters:
+            c.launches = 0
+
+    def end_path():
+        for i, c in enumerate(counters):
+            total[i] += c.launches
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def finite(tree) -> bool:
+        return all(bool(torch.isfinite(t.float()).all())
+                   for t in tree_leaves(tree))
+
+    tcfg = dict(lr=TRAIN_LR, warmup=3, total_steps=60)
+
+    # (a) the f32 cut on the card against the plain CPU step ------------
+    t0 = time.perf_counter()
+    cfg_cut = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_CUT,
+                                             logits_dtype="float32")
+    api_cut = build_model(cfg_cut)
+    tc = TrainConfig(**tcfg)
+    host = init_train_state(api_cut, 0, tc, device="cpu")
+    host = host._replace(params=tree_map(lambda p: p.float(), host.params))
+    card = _train_state_to(host, dev)
+    B, S = TRAIN_CUT_SHAPE
+    shape = ShapeSpec("cut", S, B, "train")
+    step = build_train_step(api_cut, tc)
+    got, gm = step(card, SyntheticLM(cfg_cut, shape, device=dev).batch(0))
+    want, wm = step(host, SyntheticLM(cfg_cut, shape,
+                                      device="cpu").batch(0))
+    loss_rel = abs(float(gm["loss"]) - float(wm["loss"])) / \
+        abs(float(wm["loss"]))
+    errs = _param_errors(got.params, want.params)
+    lr1 = float(wm["lr"])
+    emit("train", part="step_f32_cut", arch=TRAIN_ARCH,
+         reduced={"n_layers": [30, TRAIN_CUT]}, batch=B, seq=S,
+         loss_card=float(gm["loss"]), loss_cpu=float(wm["loss"]),
+         loss_rel=loss_rel, lr=lr1, tol=TRAIN_CUT_TOL,
+         seconds=time.perf_counter() - t0, **errs)
+    if loss_rel > TRAIN_CUT_TOL["loss_rel"] or \
+            errs["max_abs_err"] > 4 * lr1 or \
+            errs["outliers"] > TRAIN_CUT_TOL["outlier_share"] * \
+            errs["elements"]:
+        raise AssertionError(f"the card's step against the CPU's: loss "
+                             f"rel {loss_rel}, {errs}")
+    del host, card, got, want, api_cut
+    release()
+
+    # full width, bf16: microbatches 4 against 1 -------------------------
+    cfg = get_config(TRAIN_ARCH)
+    api = build_model(cfg)
+    n_params = api.param_count()
+    t0 = time.perf_counter()
+    state = init_train_state(api, gen, TrainConfig(**tcfg), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batch = SyntheticLM(cfg, shape, device=dev).batch(0)
+    outs = {}
+    for m in (1, 4):
+        new, met = build_train_step(api, TrainConfig(microbatches=m, **tcfg))(
+            state, batch)
+        outs[m] = (new.params, float(met["loss"]))
+        del new, met
+    d_max = max(float((a.float() - b.float()).abs().max()) for a, b in zip(
+        tree_leaves(outs[1][0]), tree_leaves(outs[4][0])))
+    mb_rel = abs(outs[4][1] - outs[1][1]) / abs(outs[1][1])
+    emit("train", part="microbatches", arch=TRAIN_ARCH, params=n_params,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype="bfloat16",
+         remat=cfg.remat, init_s=init_s, loss_mb1=outs[1][1],
+         loss_mb4=outs[4][1], loss_rel=mb_rel, params_max_abs_diff=d_max,
+         tol=TRAIN_MB_TOL)
+    if mb_rel > TRAIN_MB_TOL["loss_rel"] or \
+            d_max >= TRAIN_MB_TOL["params_abs"] or not finite(outs[4][0]):
+        raise AssertionError(f"microbatches 4 against 1: loss rel {mb_rel}, "
+                             f"params {d_max}")
+    del outs
+    release()
+
+    # (b) the lattice, measured beside the machine model -----------------
+    hbm = float(torch.cuda.get_device_properties(dev).total_memory)
+    chips = torch.cuda.device_count()
+    w = TPUWorkload(params=n_params, active_params=n_params,
+                    layers=cfg.n_layers, d_model=cfg.d_model, seq=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, vocab=cfg.vocab)
+    spec = get_platform_spec()
+    rows = []
+    start_path()
+    for remat in TRAIN_REMAT:
+        api_r = build_model(cfg.replace(remat=remat))
+        for m in TRAIN_MB:
+            c = TPUConfig(dp=1, tp=1, microbatches=m, remat=remat)
+            row = {"microbatches": m, "remat": remat,
+                   "modeled_ms": step_time(w, c)["total"] * 1e3,
+                   "modeled_fits": hbm_fits(w, c, hbm_bytes=hbm)}
+            step = build_train_step(api_r, TrainConfig(microbatches=m,
+                                                       **tcfg))
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            try:
+                for _ in range(1 + TRAIN_TIMED):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    new, met = step(state, batch)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    loss = float(met["loss"])
+                    del new, met
+            except torch.cuda.OutOfMemoryError:
+                row["status"] = "oom"
+            else:
+                row.update(status="ok", warm_ms=ms[0],
+                           measured_ms=sorted(ms[1:])[TRAIN_TIMED // 2],
+                           timed_ms=ms[1:], loss=loss)
+                row["ratio"] = row["measured_ms"] / row["modeled_ms"]
+                if not math.isfinite(loss):
+                    raise AssertionError(f"train lattice {row}: loss {loss}")
+            row["peak_bytes"] = torch.cuda.max_memory_allocated()
+            release()
+            emit("train", part="lattice", card=smi, **row)
+            rows.append(row)
+    end_path()
+    best_cfg, best_dec, _ = tune_distributed(w, chips_per_pod=chips,
+                                             hbm_bytes=hbm)
+    pick = next(r for r in rows if (r["microbatches"], r["remat"]) ==
+                (best_cfg.microbatches, best_cfg.remat))
+    ran = sorted((r for r in rows if r["status"] == "ok"),
+                 key=lambda r: r["measured_ms"])
+    rank = next((i + 1 for i, r in enumerate(ran) if r is pick), None)
+    emit("train", part="lattice_pick", card=smi, spec=spec.source,
+         chips=chips, hbm_bytes=hbm,
+         modeled_pick={"microbatches": best_cfg.microbatches,
+                       "remat": best_cfg.remat, "fsdp": best_cfg.fsdp,
+                       "modeled_ms": best_dec["total"] * 1e3},
+         pick_status=pick["status"],
+         measured_best={k: ran[0][k] for k in ("microbatches", "remat",
+                                               "measured_ms")},
+         pick_rank=rank, of=len(ran),
+         ooms=[(r["microbatches"], r["remat"]) for r in rows
+               if r["status"] == "oom"],
+         ratio_range=[min(r["ratio"] for r in ran),
+                      max(r["ratio"] for r in ran)])
+    del state, batch
+    release()
+
+    # (c) the driver: 60 steps, checkpoints, an injected failure --------
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   REPRO_TORCH_TUNE_CACHE=str(Path(tmp) / "cache.json"))
+        ckpt = str(Path(tmp) / "ckpt")
+        argv = TRAIN_DRIVER + ["--steps", "60", "--ckpt-dir", ckpt,
+                               "--ckpt-every", "20", "--inject-failure",
+                               "30"]
+        start_path()
+        res = run_cli("repro_torch.launch.train", argv, env,
+                      Path(tmp) / "launches.json", timeout=600)
+        out = res["out"]
+        stats = re.search(r"^steps=(\d+) wall=([\d.]+)s mean_step=([\d.]+)ms"
+                          r" restarts=(\d+) stragglers=(\d+)$", out, re.M)
+        losses = re.search(r"^loss: first=([\d.]+) last=([\d.]+) "
+                           r"min=([\d.]+)$", out, re.M)
+        if res["rc"] != 0 or stats is None or losses is None:
+            raise AssertionError(f"the training driver: rc {res['rc']}\n"
+                                 f"{out[-2000:]}\n{res['err'][-3000:]}")
+        for i, n in enumerate(res["launches"].values()):
+            total[i] += n
+        mean_s = float(stats.group(3)) / 1e3
+        first, last = float(losses.group(1)), float(losses.group(2))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        steps = available_steps(ckpt)
+        template = init_train_state(api, 0, TrainConfig(), device=dev)
+        restored, manifest = load_checkpoint(ckpt, template)
+        keys = [k for k, _ in _flatten_with_paths(template)]
+        emit("train", part="driver", argv=argv, card=smi,
+             seconds=res["seconds"], output=out.splitlines()[-4:],
+             restarts=int(stats.group(4)), stragglers=int(stats.group(5)),
+             steps_run=int(stats.group(1)), wall_s=float(stats.group(2)),
+             mean_step_ms=mean_s * 1e3, loss_first=first, loss_last=last,
+             tokens_per_s=tokens / mean_s,
+             model_flops_share=6 * n_params * tokens / mean_s / peak_flops,
+             peak_flops=peak_flops, checkpoints=steps,
+             ckpt_step=manifest["step"], ckpt_keys=len(manifest["keys"]),
+             launches=res["launches"])
+        if int(stats.group(4)) != 1 or not last < first or \
+                manifest["step"] != 60 or steps[-1] != 60 or \
+                [e["key"] for e in manifest["keys"]] != keys or \
+                int(restored.opt.step) != 60 or not finite(restored.params):
+            raise AssertionError(f"the training driver's run: restarts "
+                                 f"{stats.group(4)}, loss {first} -> {last},"
+                                 f" checkpoints {steps}, step "
+                                 f"{manifest['step']}")
+        del template, restored
+        release()
+
+        # (d) the same with --tune -----------------------------------------
+        argv = TRAIN_DRIVER + ["--steps", "20", "--tune"]
+        res = run_cli("repro_torch.launch.train", argv, env,
+                      Path(tmp) / "launches.json", timeout=600)
+        tuned = re.search(r"^\[tune\] config: microbatches=(\d+) "
+                          r"remat=(\w+) fsdp=(\w+) modeled step=([\d.]+) "
+                          r"ms", res["out"], re.M)
+        stats = re.search(r"^steps=20 wall=([\d.]+)s mean_step=([\d.]+)ms",
+                          res["out"], re.M)
+        if res["rc"] != 0 or tuned is None or stats is None:
+            raise AssertionError(f"the driver with --tune: rc {res['rc']}\n"
+                                 f"{res['out'][-2000:]}\n"
+                                 f"{res['err'][-3000:]}")
+        for i, n in enumerate(res["launches"].values()):
+            total[i] += n
+        end_path()
+        picked = (int(tuned.group(1)), tuned.group(2))
+        emit("train", part="driver_tune", argv=argv, card=smi,
+             seconds=res["seconds"], config_line=tuned.group(0),
+             mean_step_ms=float(stats.group(2)),
+             measured_in_lattice_ms=pick.get("measured_ms"))
+        if picked != (best_cfg.microbatches, best_cfg.remat) or \
+                pick["status"] != "ok":
+            raise AssertionError(f"--tune picked {picked}; the lattice's "
+                                 f"modeled pick {best_cfg} ran "
+                                 f"{pick['status']}")
+
+    # (e) flash under a gradient -------------------------------------------
+    start_path()
+    q, k, v = (torch.randn(FLASH_GRAD_SHAPE, generator=gen, device=dev
+                           ).to(torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    o = flash_attention(q, k, v, causal=True, block_q=128, block_k=64)
+    launched = fk.launches
+    try:
+        o.float().sum().backward()
+    except RuntimeError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("backward through the flash kernel did not "
+                             "raise")
+    end_path()
+    emit("train", part="flash_under_grad", shape=FLASH_GRAD_SHAPE,
+         launches=launched, requires_grad=o.requires_grad, raised=raised)
+    if launched != 1 or "no backward" not in raised:
+        raise AssertionError(f"flash under grad: {launched} launches, "
+                             f"{raised!r}")
+    del q, k, v, o
+    release()
+    emit("train", part="phase", seconds=time.perf_counter() - t_phase)
+    return {"launches": total}
+
+
 def main() -> int:
     import torch
 
@@ -3558,6 +3930,7 @@ def main() -> int:
                                fleet["launches"]):
         launches[kernel] += sum(counts)
     # 12. the other families, the earlier phases' weights released first --
+    peak_flops = observed["fitted"].peak_flops
     del model, checked, served, observed, fleet
     import gc
     gc.collect()
@@ -3571,6 +3944,17 @@ def main() -> int:
         raise AssertionError("flash attention never launched on the "
                              "families' paths")
     for kernel, n in zip(names, fams["launches"]):
+        launches[kernel] += n
+    # 13. training at full width, the families' weights released ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train(dev, gen, counters, peak_flops)
+    emit("kernels", phase_of="train", launches=dict(zip(
+        names, trained["launches"])))
+    if trained["launches"][names.index("flash_attention")] <= 0:
+        raise AssertionError("flash attention never launched on the "
+                             "training path")
+    for kernel, n in zip(names, trained["launches"]):
         launches[kernel] += n
 
     sources = {"tuned_reduction": ("src/repro_torch/csrc/tuned_reduction.cu",

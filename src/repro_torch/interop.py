@@ -15,6 +15,9 @@ Arrays cross as numpy:
   stacked leading blocks dim) and return the port's tree in the same
   layout, dtype for dtype, so both packages compute the same thing;
   :func:`params_to_numpy` goes back (bf16 widened to f32).
+* :func:`train_state_from_jax` and :func:`train_state_to_numpy` do the
+  same for a whole train state: params, the moments ``m`` and ``v``,
+  the 0-d int32 ``step`` and the error-feedback residual (or ``None``).
 
 :func:`platform_spec_from_dict` and :func:`wave_params_from_dict` build
 the port's ``PlatformSpec`` and ``WaveParams`` from the same dict a test
@@ -94,6 +97,34 @@ def params_to_numpy(tree) -> dict:
     return to_numpy(tree)
 
 
+def train_state_from_jax(state, device=None):
+    """The port's :class:`~repro_torch.runtime.train.TrainState` from the
+    JAX package's, given as numpy arrays (``jax.tree.map(np.asarray,
+    state)``): every leaf dtype for dtype on ``device`` (``cuda:0`` by
+    default)."""
+
+    from .optim import OptState
+    from .runtime.train import TrainState
+    dev = resolve_device(device)
+    tree = lambda t: None if t is None else _tree_from_numpy(t, dev)
+    return TrainState(params=tree(state.params),
+                      opt=OptState(step=from_numpy(state.opt.step, dev),
+                                   m=tree(state.opt.m), v=tree(state.opt.v)),
+                      ef_residual=tree(state.ef_residual))
+
+
+def train_state_to_numpy(state):
+    """A train state on the host, in the same NamedTuples with numpy
+    leaves (bf16 widened to f32, exact)."""
+
+    from .optim import OptState
+    tree = lambda t: None if t is None else params_to_numpy(t)
+    return type(state)(params=tree(state.params),
+                       opt=OptState(step=to_numpy(state.opt.step),
+                                    m=tree(state.opt.m), v=tree(state.opt.v)),
+                       ef_residual=tree(state.ef_residual))
+
+
 def platform_spec_from_dict(d: Mapping[str, Any]) -> PlatformSpec:
     return PlatformSpec(**dict(d))
 
@@ -104,4 +135,5 @@ def wave_params_from_dict(d: Mapping[str, Any]) -> WaveParams:
 
 __all__ = ["from_numpy", "to_numpy", "params_from_jax",
            "decode_state_from_jax", "params_to_numpy",
+           "train_state_from_jax", "train_state_to_numpy",
            "platform_spec_from_dict", "wave_params_from_dict"]

@@ -256,16 +256,35 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q, k, v: (B, H, S, D) -> (B, H, S, D).  GQA callers broadcast KV
     heads first.  Omitted block sizes are auto-tuned (cached).  Runs
     where ``q`` lies if it is a tensor, else on ``device`` (``cuda:0``
-    by default)."""
+    by default).  Forward only: ``backward`` through the result
+    raises."""
 
     q = as_device_tensor(q, device)
     k = as_device_tensor(k, q.device)
     v = as_device_tensor(v, q.device)
     B, H, S, D = q.shape
     fold = lambda x: x.reshape(B * H, S, D)
-    o = flash_kernel(fold(q), fold(k), fold(v), causal=causal,
-                     window=window, block_q=block_q, block_k=block_k)
+    o = _FlashForward.apply(fold(q), fold(k), fold(v), causal, window,
+                            block_q, block_k)
     return o.reshape(B, H, S, D)
+
+
+class _FlashForward(torch.autograd.Function):
+    """The kernel call as an autograd node with no backward, as the
+    reference's ``pallas_call`` has none: a loss through it raises on
+    ``backward`` (CUDA and CPU alike) instead of training with a
+    detached attention output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, block_q, block_k):
+        return flash_kernel(q, k, v, causal=causal, window=window,
+                            block_q=block_q, block_k=block_k)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise RuntimeError(
+            "the flash attention kernel has no backward (the reference's "
+            "pallas_call has none either): train with use_flash=False")
 
 
 __all__ = ["flash_attention", "FlashAttentionTunable", "tuning_space",

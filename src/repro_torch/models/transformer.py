@@ -17,18 +17,25 @@ Layer kinds, picked per family:
 
 The reference scans its stacked blocks with ``lax.scan``; here a Python
 loop indexes the stacked tensors (``blocks[...][i]`` is a view, no
-copy).  Forward only: the flash kernel has no backward, and training is
-a later slice.  Frame and image embeddings are cast to the residual
+copy).  ``cfg.remat`` acts per block, as the reference's remat covers
+its scan body: ``"full"`` recomputes the block in the backward,
+``"dots"`` saves its matrix products' outputs and recomputes the rest;
+only where a gradient is being taken (serving never is).  The flash
+kernel has no backward, so a loss through ``use_flash=True`` raises on
+``backward``.  Frame and image embeddings are cast to the residual
 stream's dtype (the reference promotes mixed dtypes instead; with the
 params' dtype given, both compute the same).
 """
 
 from __future__ import annotations
 
-from typing import Any
+import functools
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from . import attention as attn
@@ -187,6 +194,36 @@ def block_params(blocks: dict, i: int) -> dict:
     return tree_map(lambda a: a[i], blocks)
 
 
+# the counterpart of jax.checkpoint_policies.checkpoint_dots: the outputs
+# of matrix products are saved, everything else is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, body: Callable[[torch.Tensor], torch.Tensor],
+           x: torch.Tensor, params: Any) -> torch.Tensor:
+    """``body(x)`` for one block under ``cfg.remat``: checkpointed only
+    where a gradient is being taken through ``x`` or ``params``."""
+
+    if cfg.remat == "none" or not torch.is_grad_enabled() or not (
+            x.requires_grad
+            or any(t.requires_grad for t in tree_leaves(params))):
+        return body(x)
+    if cfg.remat == "dots":
+        return checkpoint(body, x, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_dots))
+    if cfg.remat == "full":
+        return checkpoint(body, x, use_reentrant=False)
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
 def _run_blocks(cfg: ArchConfig, blocks: dict, x: torch.Tensor,
                 positions: torch.Tensor, *,
                 enc_out: torch.Tensor | None = None, causal: bool = True,
@@ -195,9 +232,14 @@ def _run_blocks(cfg: ArchConfig, blocks: dict, x: torch.Tensor,
     n_blocks = next(iter(tree_leaves(blocks))).shape[0]
     for i in range(n_blocks):
         bp = block_params(blocks, i)
-        for j, kind in enumerate(kinds):
-            x = layer_forward(bp[f"{j}_{kind}"], cfg, kind, x, positions,
-                              enc_out=enc_out, causal=causal)
+
+        def body(h, bp=bp):
+            for j, kind in enumerate(kinds):
+                h = layer_forward(bp[f"{j}_{kind}"], cfg, kind, h, positions,
+                                  enc_out=enc_out, causal=causal)
+            return h
+
+        x = _remat(cfg, body, x, bp)
     return x
 
 
@@ -276,9 +318,13 @@ def forward_encdec(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         dp = block_params(params["blocks"], i)["0_dense"]
         xp = block_params(params["xattn_blocks"], i)
-        x = layer_forward(dp, cfg, "dense", x, positions)
-        x = x + attn.attention(xp["x"], cfg, rms_norm(x, xp["ln_x"]),
-                               positions, x_kv=enc)
+
+        def body(h, dp=dp, xp=xp):
+            h = layer_forward(dp, cfg, "dense", h, positions)
+            return h + attn.attention(xp["x"], cfg, rms_norm(h, xp["ln_x"]),
+                                      positions, x_kv=enc)
+
+        x = _remat(cfg, body, x, {"dense": dp, "x": xp})
     return _logits(params, cfg, x)
 
 

@@ -133,12 +133,28 @@ def _ensure_builtin_factories() -> None:
             f"platform.{kind}",
             lambda kind=kind, **spec_kw: _platform_factory(kind=kind,
                                                            **spec_kw))
+    _FACTORIES.setdefault("tpu.distributed", _tpu_distributed_factory)
     _FACTORIES.setdefault("meta.engine", _meta_engine_factory)
     _builtins_loaded = True
 
 
 def _platform_factory(**spec_kw):
     return PlatformTunable(PlatformSpec(**spec_kw))
+
+
+def _tpu_distributed_factory(*, arch: str | None = None,
+                             shape: str = "train_4k",
+                             workload: Mapping[str, Any] | None = None,
+                             **kw):
+    from ..core.tpu_machine import (DistributedTunable, TPUWorkload,
+                                    workload_from_arch)
+    if workload is not None:
+        w = TPUWorkload(**dict(workload))
+    elif arch is not None:
+        w = workload_from_arch(arch, shape)
+    else:
+        raise ValueError("tpu.distributed needs arch= (+shape=) or workload=")
+    return DistributedTunable(w, **kw)
 
 
 def _meta_engine_factory(*, inner: Mapping[str, Any], engine: str = "measure",

@@ -878,3 +878,78 @@ def test_fleet_rollout_on_the_card(cuda, tmp_path, capsys):
         assert node_cache.misses == 0 and node_cache.hits == 2
     finally:
         set_default_cache(prev)
+
+
+def _max_err_share(got, want, bound, frac=1e-3):
+    """Every leaf within ``bound``; at most ``frac`` of all elements
+    beyond 1e-5 absolute + 1e-4 relative (an Adam step of a gradient
+    within a few eps of 0 moves by ~lr, whatever its rounding)."""
+
+    n_out = n = 0
+    for k in sorted(want):
+        g, w = got[k], want[k]
+        if isinstance(w, dict):
+            _max_err_share(g, w, bound, frac)
+            continue
+        g, w = g.detach().cpu().float(), w.detach().cpu().float()
+        err = (g - w).abs()
+        assert float(err.max()) <= bound, k
+        n += err.numel()
+        n_out += int((err > 1e-5 + 1e-4 * w.abs()).sum())
+    assert n_out <= max(1, frac * n)
+
+
+def test_train_step_on_the_card_equals_the_cpu_step(cuda):
+    """The reduced smollm in f32: one ``build_train_step`` step on the
+    card (cuBLAS products, TF32 off) against the plain CPU step from the
+    same state and batch.  The state it was given is left untouched."""
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.runtime import (TrainConfig, build_train_step,
+                                     init_train_state)
+    cfg = get_config("smollm-135m").reduced().replace(
+        logits_dtype="float32")
+    api = build_model(cfg)
+    t = TrainConfig(lr=3e-3, warmup=2, total_steps=10, microbatches=2)
+    host = init_train_state(api, 0, t, device="cpu")
+    host = host._replace(params=tree_map(lambda p: p.float(), host.params))
+    card = type(host)(tree_map(lambda p: p.to(cuda), host.params),
+                      type(host.opt)(host.opt.step.to(cuda),
+                                     tree_map(lambda p: p.to(cuda),
+                                              host.opt.m),
+                                     tree_map(lambda p: p.to(cuda),
+                                              host.opt.v)), None)
+    shape = ShapeSpec("t", 64, 4, "train")
+    batch = SyntheticLM(cfg, shape, device="cpu").batch(0)
+    step = build_train_step(api, t)
+    before = tree_map(lambda p: p.clone(), card.params)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, gm = step(card, SyntheticLM(cfg, shape, device=cuda).batch(0))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    want, wm = step(host, batch)
+    torch.testing.assert_close(gm["loss"].cpu(), wm["loss"], rtol=1e-4,
+                               atol=0)
+    _max_err_share(got.params, want.params, 4 * float(wm["lr"]))
+    _max_err_share(card.params, before, 0.0, 0.0)
+    assert int(got.opt.step) == 1 and got.opt.step.device.type == "cuda"
+
+
+def test_flash_backward_raises_on_the_card(cuda):
+    """The kernel has no backward: a loss through it launches the kernel
+    once and raises on ``backward`` instead of training with a detached
+    output."""
+
+    q, k, v = (t.requires_grad_() for t in
+               _qkv((1, 9, 2048, 64), torch.bfloat16, cuda, 3))
+    before = flash_kernel.launches
+    o = flash_attention(q, k, v, causal=True, block_q=128, block_k=64)
+    assert flash_kernel.launches == before + 1 and o.requires_grad
+    with pytest.raises(RuntimeError, match="no backward"):
+        o.float().sum().backward()
+    with torch.no_grad():
+        o2 = flash_attention(q, k, v, causal=True, block_q=128, block_k=64)
+    assert torch.equal(o.detach(), o2)

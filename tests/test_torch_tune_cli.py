@@ -139,8 +139,25 @@ def test_registry_names_every_tunable_of_the_reference_plan():
             "platform.minimum"} <= names
     spec = json.loads(FLEET_PLAN.read_text())
     assert {j["tunable"] for j in spec["jobs"]} <= names
-    # needs the TPU machine model, which the port does not have
-    assert "tpu.distributed" not in names
+    # the distributed machine model: a reference-style job resolves and
+    # picks the reference's config under the same constants
+    assert "tpu.distributed" in names
+    job = {"tunable": "tpu.distributed",
+           "params": {"arch": "smollm-135m", "shape": "train_4k",
+                      "chips_per_pod": 8, "hbm_bytes": 16e9}}
+    one = {"name": "distributed-only", "jobs": [job]}
+    src = calibrate.DEFAULT_SPEC.constants()
+    jprev = jax_calibrate.set_platform_spec(jax_calibrate.PlatformSpec(**src))
+    prev = calibrate.set_platform_spec(calibrate.PlatformSpec(**src))
+    try:
+        got = TuningPlan.from_spec(one).run(cache=None).results[0]
+        want = jax_tune.TuningPlan.from_spec(one).run(cache=None).results[0]
+    finally:
+        jax_calibrate.set_platform_spec(jprev)
+        calibrate.set_platform_spec(prev)
+    assert got.status == want.status == "tuned"
+    assert got.best_config == want.best_config
+    assert got.t_min == want.t_min
     from repro_torch.runtime import register_scheduler
     from repro_torch.runtime.scheduler import \
         register_scheduler as defined
