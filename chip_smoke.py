@@ -4,8 +4,9 @@ loop, the dense model path, the paged serving path (qwen1.5-4b at full
 width), the model checker, the serving tunables, the card's calibration
 with the Server observed on it, the fleet rollout and verification
 CLIs, the other model families (hymba, mamba2, whisper, mixtral and
-llama-3.2-vision at full width, the last two cut in depth), and
-training (smollm-135m at full width).
+llama-3.2-vision at full width, the last two cut in depth), training
+(smollm-135m at full width), and the sharded paths on a 1x1 mesh with
+the dry run of the production meshes on the card's host.
 
     python3 chip_smoke.py
 
@@ -138,8 +139,9 @@ Each phase prints one JSON line:
    its weights: (a) one ``build_train_step`` step of an f32 cut of 2
    layers on the card against the plain CPU step from the same state,
    and at full width ``microbatches=4`` against ``microbatches=1``; (b)
-   every (microbatches, remat) point of the machine model's one-card
-   lattice, 1 warm and 3 timed steps, measured beside ``step_time``'s
+   the machine model's one-card lattice at microbatches 1, 2 and 4 (8
+   cut since phase 14 came, for time) × every remat, 1 warm and 3
+   timed steps, measured beside ``step_time``'s
    modeled ms with peak memory (``oom`` recorded), the modeled pick, the
    measured best and the pick's rank; (c) ``python -m
    repro_torch.launch.train`` for 60 steps with checkpoints every 20
@@ -148,7 +150,27 @@ Each phase prints one JSON line:
    10's fitted peak); (d) the same with ``--tune``, whose pick must be
    (b)'s modeled pick and must have run; (e) flash attention under a
    gradient: one launch, then ``backward`` raises; then each kernel's
-   launches over (b)-(e).
+   launches over (b)-(e);
+14. ``distributed`` — the sharded paths on a 1x1 NCCL mesh (world size
+   1) and the dry run on the card's host: (a) qwen1.5-4b at full width
+   and depth in bf16, its params placed by ``shard_like``: a forward at
+   S = 4096 with the flash kernel under ``local_map`` (40 launches)
+   against the unsharded forward's last-token logits (rel L2 1e-2, and
+   whether bit-equal), a ``decode_step`` at B = 4 over a 1,024 context
+   against the unsharded one, each timed beside the unsharded; (b)
+   smollm-135m at B = 8, S = 2048, remat full, state and batch as
+   DTensors: 3 steps against 3 unsharded steps (loss rel 1e-3), step
+   ms and peak memory beside phase 13's lattice point, a checkpoint
+   saved from the mesh and loaded onto it bit-equal; (c) ``python -m
+   repro_torch.launch.dryrun`` in the background from the phase's
+   start, one subprocess a cell on all but one of the host's cores, train
+   cells at one microbatch: the four dense archs × the four shapes on
+   16 × 16, qwen3-32b train_4k on 2 × 16 × 16, the six other families'
+   train_4k (status and reason),
+   each priced by ``analyze`` on the H100 data sheet with its wall
+   seconds (a dense cell failing fails the phase); (d) ``lower_cell``
+   on a fake 1 × 1 group at (b)'s shape, its peak within 25 % of (b)'s
+   measured peak; then each kernel's launches over (a) and (b).
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -360,8 +382,10 @@ TRAIN_CUT_TOL = {"loss_rel": 1e-4, "atol": 1e-5, "rtol": 1e-4,
 # microbatches 4 against 1 at full width: the reference's own tolerance
 # (tests/test_system.py): loss rel 2e-2, params max abs 5e-2
 TRAIN_MB_TOL = {"loss_rel": 2e-2, "params_abs": 5e-2}
-# (b) the lattice: every (microbatches, remat), 1 warm and 3 timed steps
-TRAIN_MB = (1, 2, 4, 8)
+# (b) the lattice: microbatches 1-4 x every remat, 1 warm and 3 timed
+# steps (8 microbatches, 29-58 s of steps over the three remats on an
+# H100, cut to keep the script within its time with phase 14)
+TRAIN_MB = (1, 2, 4)
 TRAIN_REMAT = ("none", "dots", "full")
 TRAIN_TIMED = 3
 # (c)/(d) the training driver as a user runs it
@@ -369,6 +393,24 @@ TRAIN_DRIVER = ["--arch", TRAIN_ARCH, "--preset", "full", "--batch",
                 str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)]
 # (e) flash under a gradient at smollm's attention shape, one layer
 FLASH_GRAD_SHAPE = (1, 9, TRAIN_SEQ, 64)
+
+
+# phase 14: the sharded paths on a 1x1 NCCL mesh, the dry run on the host
+# qwen1.5-4b's last-token logits on the mesh against the unsharded
+# forward (phase 6(a)'s bound), smollm-135m's losses against the
+# unsharded steps, the dry run's peak against the measured one
+DIST_LOGITS_REL = 1e-2
+DIST_LOSS_REL = 1e-3
+DIST_PEAK_REL = 0.25
+DIST_STEPS = 3
+DIST_DENSE = ("smollm-135m", "qwen1.5-4b", "minitron-8b", "qwen3-32b")
+DIST_OTHERS = ("mamba2-2.7b", "mixtral-8x22b", "llama4-maverick-400b-a17b",
+               "llama-3.2-vision-90b", "hymba-1.5b", "whisper-medium")
+DIST_MULTI = ("qwen3-32b", "train_4k")
+# (c)'s train cells at one microbatch: the auto factor (4-16 at these
+# archs) repeats the same layers' work, and the fake run pays host
+# dispatch for every op (qwen3-32b's auto 16 took 593 s on a CPU)
+DIST_MICROBATCHES = 1
 
 
 # runs ``python -m <argv[1]> <argv[2:]>`` and, at exit, writes the
@@ -3231,8 +3273,9 @@ def train(dev, gen, counters, peak_flops: float) -> dict:
     (a) one ``build_train_step`` step of an f32 cut (2 layers) on the card
     against the plain CPU step from the same state, then at full width
     ``microbatches=4`` against ``microbatches=1``;
-    (b) the paper's method on training: every (microbatches, remat) point
-    of the machine model's one-card lattice, 1 warm and 3 timed steps
+    (b) the paper's method on training: the (microbatches, remat) points
+    of the machine model's one-card lattice (``TRAIN_MB``), 1 warm and 3
+    timed steps
     each, measured ms beside ``step_time``'s modeled ms under the active
     spec, their ratio and peak memory (a point that runs out of memory is
     recorded as ``oom``); then the modeled pick, the measured best and
@@ -3521,7 +3564,366 @@ def train(dev, gen, counters, peak_flops: float) -> dict:
     del q, k, v, o
     release()
     emit("train", part="phase", seconds=time.perf_counter() - t_phase)
-    return {"launches": total}
+    return {"launches": total, "lattice": rows}
+
+
+def _dryrun_jobs(tmp: Path) -> list:
+    """Phase 14(c)'s dry-run cells, longest first: each dense arch's
+    shapes on the single-pod mesh, qwen3-32b's train_4k on the multi-pod
+    mesh, and the other families' train_4k."""
+
+    from repro_torch.configs import SHAPES
+    jobs = []
+    for arch in DIST_DENSE:
+        for shape in SHAPES:
+            jobs.append((arch, shape, "--single-pod"))
+    jobs.append((*DIST_MULTI, "--multi-pod"))
+    for arch in DIST_OTHERS:
+        jobs.append((arch, "train_4k", "--single-pod"))
+    order = {"train_4k": 0, "prefill_32k": 1, "decode_32k": 2,
+             "long_500k": 3}
+    big = {a: i for i, a in enumerate(reversed(DIST_DENSE))}
+    jobs.sort(key=lambda j: (order[j[1]], j[2] != "--multi-pod",
+                             big.get(j[0], len(big))))
+    return [(a, sh, mp, tmp / f"{a}-{sh}{mp}.json") for a, sh, mp in jobs]
+
+
+def _start_dryrun(jobs: list, workers: int) -> dict:
+    """Run ``python -m repro_torch.launch.dryrun`` for each job, at most
+    ``workers`` at a time, in the background; :func:`_finish_dryrun`
+    waits for them."""
+
+    import os
+    import threading
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    state = {"walls": {}, "errors": {}}
+
+    def run(job):
+        arch, shape, mesh, out = job
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, mesh, "--no-blocks", "--microbatches",
+             str(DIST_MICROBATCHES), "--out", str(out)],
+            capture_output=True, text=True, cwd=ROOT, env=env, timeout=900)
+        state["walls"][job[:3]] = time.perf_counter() - t0
+        if not out.exists():
+            state["errors"][job[:3]] = proc.stderr[-2000:]
+
+    pending = list(jobs)
+    lock = threading.Lock()
+
+    def worker():
+        while True:
+            with lock:
+                if not pending:
+                    return
+                job = pending.pop(0)
+            run(job)
+
+    state["threads"] = [threading.Thread(target=worker, daemon=True)
+                        for _ in range(workers)]
+    for t in state["threads"]:
+        t.start()
+    return state
+
+
+def _finish_dryrun(state: dict, jobs: list, smi: str) -> dict:
+    from repro_torch.calibrate.spec import DEFAULT_SPEC
+    from repro_torch.launch.roofline import analyze
+
+    for t in state["threads"]:
+        t.join()
+    if state["errors"]:
+        raise AssertionError(f"dry-run processes wrote no record: "
+                             f"{state['errors']}")
+    rows, failed = [], []
+    for arch, shape, mesh, out in jobs:
+        [rec] = json.loads(out.read_text())
+        r = analyze(rec, spec=DEFAULT_SPEC)
+        row = {"arch": arch, "shape": shape, "mesh": rec["mesh"],
+               "status": rec["status"], "reason": rec["reason"][:300],
+               "wall_s": state["walls"][(arch, shape, mesh)],
+               "run_s": rec["lower_s"]}
+        if rec["status"] == "ok":
+            row.update(compute_ms=r.compute_s * 1e3,
+                       memory_ms=r.memory_s * 1e3,
+                       collective_ms=r.collective_s * 1e3,
+                       dominant=r.dominant, useful=r.useful_ratio,
+                       mfu=r.mfu, peak_gib=r.peak_hbm_gib,
+                       flops_per_dev=rec["cost"]["flops"],
+                       bytes_per_dev=rec["cost"]["bytes_accessed"],
+                       coll_bytes_per_dev=rec["collectives"]["total_bytes"],
+                       microbatches=rec["settings"]["microbatches"])
+        emit("distributed", part="dryrun", spec="H100 data sheet",
+             card=smi, **row)
+        rows.append(row)
+        if arch in DIST_DENSE and rec["status"] == "failed":
+            failed.append((arch, shape, mesh, rec["reason"]))
+        if arch in DIST_DENSE and rec["status"] == "skipped" and \
+                shape != "long_500k":
+            failed.append((arch, shape, mesh, rec["reason"]))
+    if failed:
+        raise AssertionError(f"dense dry-run cells failed: {failed}")
+    return {"rows": rows}
+
+
+def distributed(dev, counters, trained: dict) -> dict:
+    """Phase 14: the sharded paths on the card and the dry run on its
+    host (counts set to 0 just before each main path, read just after):
+
+    (a) a 1x1 NCCL mesh (``init_process_group("nccl")``, world size 1)
+    and qwen1.5-4b at full width and depth in bf16 from seed 0, its
+    params placed by ``shard_like`` under ``use_mesh``: a ``forward`` at
+    S = 4096 through the flash kernel under ``local_map`` (40 launches,
+    counted), its last-token logits held to the unsharded ``forward``'s,
+    and a ``decode_step`` at B = 4 over a 1,024 context against the
+    unsharded one, each timed beside the unsharded;
+    (b) smollm-135m at full width, B = 8, S = 2048, remat full: state,
+    optimizer and batch as DTensors on the mesh, 3 steps against 3
+    unsharded steps from the same state (step ms and peak memory beside
+    phase 13's lattice point), then ``save_checkpoint`` from the mesh and
+    ``load_checkpoint`` onto it, bit-equal;
+    (c) ``python -m repro_torch.launch.dryrun`` as subprocesses, run in
+    the background from the phase's start: the four dense archs × the
+    four shapes on the 16 × 16 mesh, qwen3-32b's train_4k on 2 × 16 × 16,
+    the six other families' train_4k, train cells at one microbatch;
+    each record priced by ``analyze`` on the H100 data sheet; a dense
+    cell that fails fails the phase;
+    (d) ``lower_cell`` on a fake 1 × 1 group at (b)'s shape: its
+    ``peak_hbm_bytes`` within 25 % of (b)'s measured peak.
+
+    Returns the launches of each kernel over (a)'s and (b)'s main paths."""
+
+    import gc
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distribute.sharding import place, shard_like, use_mesh
+    from repro_torch.launch.cells import lower_cell, rules_for_arch
+    from repro_torch.launch.mesh import fake_world, make_smoke_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import axes_tree, tree_leaves, tree_map
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.runtime import (TrainConfig, TrainState,
+                                     build_train_step, init_train_state)
+    from repro_torch.tune import TuningCache, set_default_cache
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    total = [0] * len(counters)
+    flash = counters[-1]
+    tmp = Path(tempfile.mkdtemp(prefix="phase14-"))
+    jobs = _dryrun_jobs(tmp)
+    workers = max(1, (os.cpu_count() or 2) - 1)
+    pool = _start_dryrun(jobs, workers)
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                            rank=0, world_size=1)
+    prev = set_default_cache(TuningCache(tmp / "tune_cache.json"))
+    try:
+        mesh = make_smoke_mesh()
+        emit("distributed", part="mesh", backend=dist.get_backend(),
+             mesh=dict(zip(mesh.mesh_dim_names, tuple(mesh.shape))),
+             device_type=mesh.device_type, workers=workers, cells=len(jobs))
+
+        # (a) serving on the mesh --------------------------------------
+        cfg = get_config(MODEL)
+        api = build_model(cfg)
+        rules = rules_for_arch(cfg)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        params = api.init(g, device=dev)
+        toks = torch.randint(0, cfg.vocab, (1, FWD_S), generator=g,
+                             device=dev)
+        with torch.no_grad():
+            fwd = lambda: api.forward(params, {"tokens": toks})
+            want = fwd()[0, -1].float()
+            plain_ms = time_ms(fwd, 3, warmup=1)
+            with use_mesh(mesh, rules):
+                pm = place(params, shard_like(params, api.axes(), mesh,
+                                              rules))
+                tk = place(toks, shard_like(toks, ("batch", "seq"), mesh,
+                                            rules))
+                mfwd = lambda: api.forward(pm, {"tokens": tk})
+                for c in counters:
+                    c.launches = 0
+                got = mfwd()
+                launched = flash.launches
+                for i, c in enumerate(counters):
+                    total[i] += c.launches
+                got = full(got)[0, -1].float()
+                mesh_ms = time_ms(mfwd, 3, warmup=1)
+            r_fwd = rel(got, want)
+            emit("distributed", part="forward", arch=MODEL, S=FWD_S,
+                 placements=str(pm["blocks"]["0_dense"]["attn"]["wq"]
+                                .placements),
+                 flash_launches=launched, rel_l2=r_fwd,
+                 bit_equal=bool(torch.equal(got, want)),
+                 max_abs_diff=float((got - want).abs().max()),
+                 mesh_ms=mesh_ms, plain_ms=plain_ms, card=smi,
+                 tol=DIST_LOGITS_REL)
+            if launched != cfg.n_layers or not r_fwd <= DIST_LOGITS_REL:
+                raise AssertionError(f"forward on the mesh: {launched} flash "
+                                     f"launches, rel L2 {r_fwd}")
+            del got, want, tk
+            release()
+
+            # decode: B slots at per-slot positions over a 1,024 context
+            B, C = SERVE["batch"], SERVE["context"]
+            state = api.init_decode_state(B, C, device=dev)
+            for t in range(8):      # a few rows of history in every ring
+                api.decode_step(params, state, toks[:, t:t + 1].expand(
+                    B, 1), t)
+            cur = torch.tensor([8, 8, 8, 8], device=dev)
+            tok1 = toks[:, 8:9].expand(B, 1).contiguous()
+            st_mesh = tree_map(lambda t: t.clone(), state)
+            want, _ = api.decode_step(params, state, tok1, cur)
+            dplain_ms = time_ms(lambda: api.decode_step(params, state, tok1,
+                                                        cur), 10)
+            dspecs = api.decode_state_specs(B, C)
+            with use_mesh(mesh, rules):
+                sd = place(st_mesh, shard_like(st_mesh, axes_tree(dspecs),
+                                               mesh, rules))
+                t1 = place(tok1, shard_like(tok1, ("batch", None), mesh,
+                                            rules))
+                c1 = place(cur, shard_like(cur, ("batch",), mesh, rules))
+                got, _ = api.decode_step(pm, sd, t1, c1)
+                got = full(got).float()
+                kv_equal = all(bool(torch.equal(
+                    full(sd["blocks"]["0_dense"]["kv"][n]),
+                    state["blocks"]["0_dense"]["kv"][n])) for n in ("k", "v"))
+                dmesh_ms = time_ms(lambda: api.decode_step(pm, sd, t1, c1),
+                                   10)
+            r_dec = rel(got, want.float())
+            emit("distributed", part="decode", arch=MODEL, batch=B,
+                 context=C, rel_l2=r_dec,
+                 bit_equal=bool(torch.equal(got, want.float())),
+                 kv_bit_equal=kv_equal, mesh_ms=dmesh_ms,
+                 plain_ms=dplain_ms, card=smi, tol=DIST_LOGITS_REL)
+            if not r_dec <= DIST_LOGITS_REL or not kv_equal:
+                raise AssertionError(f"decode on the mesh: rel L2 {r_dec}, "
+                                     f"K/V equal {kv_equal}")
+        del params, pm, state, st_mesh, sd, got, want, api
+        release()
+
+        # (b) training on the mesh -------------------------------------
+        tcfg = TrainConfig(lr=TRAIN_LR, warmup=3, total_steps=60)
+        cfg = get_config(TRAIN_ARCH)
+        api = build_model(cfg)
+        rules = rules_for_arch(cfg)
+        g.manual_seed(0)
+        state = init_train_state(api, g, tcfg, device=dev)
+        shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        data = SyntheticLM(cfg, shape, device=dev)
+        batches = [data.batch(i) for i in range(DIST_STEPS)]
+        step = build_train_step(api, tcfg)
+
+        def run_steps(st, bs):
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms = [], []
+            for b in bs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, met = step(st, b)
+                losses.append(float(met["loss"]))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return st, losses, ms, torch.cuda.max_memory_allocated()
+
+        ax = api.axes()
+        st_ax = TrainState(params=ax, opt=OptState(step=(), m=ax, v=ax),
+                           ef_residual=None)
+        with use_mesh(mesh, rules):
+            st0 = place(state, shard_like(state, st_ax, mesh, rules))
+            bm = [place(b, shard_like(b, {"tokens": ("batch", "seq"),
+                                          "labels": ("batch", "seq")},
+                                      mesh, rules)) for b in batches]
+        _, plain_losses, plain_ms, plain_peak = run_steps(state, batches)
+        del state
+        with use_mesh(mesh, rules):
+            for c in counters:
+                c.launches = 0
+            st, losses, ms, peak = run_steps(st0, bm)
+            for i, c in enumerate(counters):
+                total[i] += c.launches
+            del st0
+            ckpt = tmp / "ckpt"
+            save_checkpoint(str(ckpt), DIST_STEPS, st)
+            back, manifest = load_checkpoint(str(ckpt), st)
+            equal = all(bool(torch.equal(full(a), full(b))) for a, b in zip(
+                tree_leaves(st.params) + tree_leaves(st.opt.m),
+                tree_leaves(back.params) + tree_leaves(back.opt.m))) and \
+                int(full(back.opt.step)) == DIST_STEPS
+            placed = str(back.params["embed"].placements)
+        p13 = next((r for r in trained["lattice"] if r["remat"] == "full"
+                    and r["microbatches"] == 1), {})
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                           plain_losses))
+        emit("distributed", part="train", arch=TRAIN_ARCH,
+             batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat=cfg.remat,
+             losses=losses, plain_losses=plain_losses, loss_rel=loss_rel,
+             step_ms=ms, plain_step_ms=plain_ms, peak_bytes=peak,
+             plain_peak_bytes=plain_peak,
+             phase13_ms=p13.get("measured_ms"),
+             phase13_peak_bytes=p13.get("peak_bytes"),
+             ckpt_bit_equal=equal, ckpt_step=manifest["step"],
+             restored_placements=placed, card=smi, tol=DIST_LOSS_REL)
+        if not loss_rel <= DIST_LOSS_REL or not equal:
+            raise AssertionError(f"training on the mesh: loss rel "
+                                 f"{loss_rel}, checkpoint equal {equal}")
+        del st, back, bm, batches, api
+        release()
+    finally:
+        set_default_cache(prev)
+        dist.destroy_process_group()
+
+    # (d) the dry run's memory at (b)'s shape on a fake 1 x 1 group ------
+    SHAPES["phase14_train"] = ShapeSpec("phase14_train", TRAIN_SEQ,
+                                        TRAIN_BATCH, "train")
+    try:
+        with fake_world(1):
+            rec = lower_cell(TRAIN_ARCH, "phase14_train",
+                             mesh=make_smoke_mesh((1, 1)), tcfg=tcfg,
+                             remat="full")
+    finally:
+        del SHAPES["phase14_train"]
+    if rec.status != "ok":
+        raise AssertionError(f"the dry run at (b)'s shape: {rec.reason}")
+    dry_peak = rec.memory["peak_hbm_bytes"]
+    peak_rel = abs(dry_peak - peak) / peak
+    emit("distributed", part="dryrun_memory", arch=TRAIN_ARCH,
+         dry_peak_bytes=dry_peak, measured_peak_bytes=peak,
+         rel=peak_rel, memory=rec.memory, run_s=rec.lower_s,
+         tol=DIST_PEAK_REL, card=smi)
+    if not peak_rel <= DIST_PEAK_REL:
+        raise AssertionError(f"dry-run peak {dry_peak} against measured "
+                             f"{peak}: {peak_rel}")
+
+    # (c) the dry run ---------------------------------------------------
+    t0 = time.perf_counter()
+    cells = _finish_dryrun(pool, jobs, smi)
+    emit("distributed", part="phase", seconds=time.perf_counter() - t_phase,
+         dryrun_wait_s=time.perf_counter() - t0)
+    return {"launches": total, "cells": cells["rows"]}
 
 
 def main() -> int:
@@ -3955,6 +4357,17 @@ def main() -> int:
         raise AssertionError("flash attention never launched on the "
                              "training path")
     for kernel, n in zip(names, trained["launches"]):
+        launches[kernel] += n
+    # 14. the sharded paths on a 1x1 mesh, the dry run on the host -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = distributed(dev, counters, trained)
+    emit("kernels", phase_of="distributed", launches=dict(zip(
+        names, sharded["launches"])))
+    if sharded["launches"][names.index("flash_attention")] <= 0:
+        raise AssertionError("flash attention never launched on the "
+                             "sharded path")
+    for kernel, n in zip(names, sharded["launches"]):
         launches[kernel] += n
 
     sources = {"tuned_reduction": ("src/repro_torch/csrc/tuned_reduction.cu",

@@ -15,7 +15,13 @@ other's checkpoints:
   ``np.save`` writes an ``ml_dtypes`` bfloat16 array) under the manifest
   dtype ``"bfloat16"``, and read back through a ``uint16`` view, so
   ``ml_dtypes`` is never imported.
-* Arrays are saved whole, so a restore may place them on another device.
+* Arrays are saved whole, so a restore may place them on another device
+  or mesh: a DTensor leaf is written as its full value
+  (``full_tensor()``, a collective every rank joins; rank 0 writes), and
+  a restore puts each leaf where ``sharding_fn`` says (a device, or a
+  :class:`~repro_torch.distribute.sharding.NamedSharding` through
+  ``distribute_tensor``) or else like the template's leaf (a DTensor
+  template leaf keeps its mesh and placements).
 * Atomicity: writes go to ``step_<n>.tmp/``, renamed when complete: a
   crash mid-save never corrupts the latest checkpoint.
 * Async: ``save(..., blocking=False)`` snapshots the tree to host memory
@@ -76,10 +82,47 @@ def _unflatten(template, leaves: dict[str, Any], prefix: str = ""):
                             for f, v in zip(template._fields, template)))
 
 
+def _whole(leaf: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value (a collective); any other tensor itself."""
+
+    from torch.distributed.tensor import DTensor
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
+def _is_writer() -> bool:
+    """Rank 0 writes (every rank holds the same whole values)."""
+
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _place(t: torch.Tensor, where, tmpl: torch.Tensor) -> torch.Tensor:
+    """A restored leaf on ``where`` (a device or a NamedSharding), else
+    like the template's leaf."""
+
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if where is None and isinstance(tmpl, DTensor):
+        return distribute_tensor(t.to(tmpl.device), tmpl.device_mesh,
+                                 tmpl.placements)
+    if where is None:
+        return t.to(tmpl.device)
+    if hasattr(where, "placements"):
+        mesh = where.mesh
+        return distribute_tensor(t.to(mesh.device_type), mesh,
+                                 where.placements)
+    return t.to(where)
+
+
 def _to_host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
     """A leaf as the array ``np.save`` writes and its manifest dtype."""
 
-    t = leaf.detach().to("cpu")
+    t = _whole(leaf).detach().to("cpu")
     if t.dtype == torch.bfloat16:
         bits = t.contiguous().view(torch.int16).numpy()
         return bits.view(np.dtype("V2")), "bfloat16"
@@ -99,8 +142,20 @@ def _from_file(arr: np.ndarray, dtype: str) -> torch.Tensor:
 def save_checkpoint(directory: str, step: int, tree, *, extra: dict | None
                     = None) -> str:
     """Blocking atomic save of a tree of tensors; returns the committed
-    path."""
+    path.  Under a process group every rank calls it (DTensor leaves are
+    gathered), rank 0 writes, and all return once the files are there."""
 
+    final = os.path.join(directory, f"step_{step:08d}")
+    if not _is_writer():
+        _host_copy(tree)              # join the gathers
+        _barrier()
+        return final
+    _write(directory, step, _host_copy(tree), extra)
+    _barrier()
+    return final
+
+
+def _write(directory: str, step: int, tree, extra: dict | None) -> str:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -127,8 +182,9 @@ def save_checkpoint(directory: str, step: int, tree, *, extra: dict | None
 def load_checkpoint(directory: str, template, *, step: int | None = None,
                     sharding_fn: Callable[[str], Any] | None = None):
     """Restore onto ``template``'s structure -> (tree, manifest).  Each
-    leaf goes to ``sharding_fn(key)`` (a device) when given, else to the
-    device of the template's leaf."""
+    leaf goes to ``sharding_fn(key)`` (a device, or a NamedSharding: a
+    DTensor on its mesh) when given, else where the template's leaf is
+    (its device, or its mesh and placements)."""
 
     steps = available_steps(directory)
     if not steps:
@@ -147,8 +203,8 @@ def load_checkpoint(directory: str, template, *, step: int | None = None,
             raise ValueError(f"shape mismatch for {key}: ckpt "
                              f"{tuple(t.shape)} vs template "
                              f"{tuple(tmpl.shape)}")
-        out[key] = t.to(sharding_fn(key) if sharding_fn is not None
-                        else tmpl.device)
+        out[key] = _place(t, sharding_fn(key) if sharding_fn is not None
+                          else None, tmpl)
     return _unflatten(template, out), manifest
 
 
@@ -165,7 +221,7 @@ def available_steps(directory: str) -> list[int]:
 def _host_copy(tree):
     """A snapshot of the tree in host memory, shared with nothing."""
 
-    leaves = {k: v.detach().to("cpu", copy=True)
+    leaves = {k: _whole(v).detach().to("cpu", copy=True)
               for k, v in _flatten_with_paths(tree)}
     return _unflatten(tree, leaves)
 
@@ -192,22 +248,28 @@ class CheckpointManager:
 
         def work():
             try:
-                save_checkpoint(self.directory, step, host_tree, extra=extra)
-                self._gc()
+                if _is_writer():
+                    _write(self.directory, step, host_tree, extra)
+                    self._gc()
             except Exception as e:  # surfaced on next wait()
                 self._error = e
 
         if blocking:
             work()
+            _barrier()
             self.raise_if_failed()
         else:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
 
     def wait(self) -> None:
+        """Wait for the in-flight save (under a process group, every
+        rank waits for rank 0's)."""
+
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+            _barrier()
         self.raise_if_failed()
 
     def raise_if_failed(self) -> None:

@@ -100,4 +100,20 @@ class SyntheticLM:
             stop.set()
 
 
-__all__ = ["DataConfig", "SyntheticLM"]
+def make_batch_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """Meta tensors of a global batch (the dry-run input contract), in
+    the reference's dtypes."""
+
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda shp, dt=torch.int32: torch.empty(shp, dtype=dt,
+                                                   device="meta")
+    out = {"tokens": meta((B, S)), "labels": meta((B, S))}
+    if cfg.family == "vlm":
+        out["img_embeds"] = meta((B, cfg.n_img_tokens, cfg.d_model),
+                                 torch.bfloat16)
+    if cfg.is_encdec:
+        out["frames"] = meta((B, cfg.enc_seq, cfg.d_model), torch.bfloat16)
+    return out
+
+
+__all__ = ["DataConfig", "SyntheticLM", "make_batch_specs"]

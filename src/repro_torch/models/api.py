@@ -29,15 +29,16 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeSpec
 from ..kernels.common import resolve_device
 from . import attention as attn
 from . import ssm as ssm_mod
-from .common import (PSpec, init_params, rms_norm, stack_specs, tree_leaves,
-                     tree_map)
+from .common import (PSpec, abstract_params, axes_tree, init_params, rms_norm,
+                     stack_specs, tree_leaves, tree_map)
 from .transformer import (_block_plan, _embed, _logits, block_params, encode,
-                          ffn_forward, forward_encdec, forward_lm, lm_loss,
-                          sinusoid_at, stack_param_specs)
+                          ffn_forward, forward_encdec, forward_lm,
+                          gather_params, lm_loss, sinusoid_at,
+                          stack_param_specs)
 
 
 def _cache_len(cfg: ArchConfig, context: int) -> int:
@@ -67,6 +68,14 @@ class ModelAPI:
             generator = torch.Generator(device=dev)
             generator.manual_seed(seed)
         return init_params(self.specs, generator, dev)
+
+    def abstract(self):
+        """Meta tensors of the parameters (the dry run's stand-ins)."""
+
+        return abstract_params(self.specs)
+
+    def axes(self):
+        return axes_tree(self.specs)
 
     def param_count(self) -> int:
         return int(sum(np.prod(s.shape) for s in tree_leaves(self.specs)))
@@ -269,7 +278,7 @@ class ModelAPI:
         cfg = self.cfg
         kinds, n_blocks = _block_plan(cfg)
         for i in range(n_blocks):
-            bp = block_params(params["blocks"], i)
+            bp = gather_params(block_params(params["blocks"], i))
             cache = block_params(state["blocks"], i)
             for j, kind in enumerate(kinds):
                 key = f"{j}_{kind}"
@@ -289,7 +298,7 @@ class ModelAPI:
                     x = x + torch.tanh(p["gate"]).to(x.dtype) * a
                 x = ffn_forward(p, cfg, kind, x)
             if cfg.is_encdec:
-                xp = block_params(params["xattn_blocks"], i)
+                xp = gather_params(block_params(params["xattn_blocks"], i))
                 x = x + attn.decode_cross_attention(
                     xp["x"], cfg, rms_norm(x, xp["ln_x"]),
                     block_params(state["xattn"], i))
@@ -305,13 +314,56 @@ class ModelAPI:
         enc = encode(params, cfg, frames)
         ks, vs = [], []
         for i in range(cfg.n_layers):
-            xp = block_params(params["xattn_blocks"], i)["x"]
+            xp = gather_params(block_params(params["xattn_blocks"], i)["x"])
             k = torch.einsum("bsd,dhk->bhsk", enc, xp["wk"])
             if "k_norm" in xp:
                 k = rms_norm(k, xp["k_norm"])
             ks.append(k)
             vs.append(torch.einsum("bsd,dhk->bhsk", enc, xp["wv"]))
         return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+    # -- assigned-shape input specs ----------------------------------------
+    def input_specs(self, shape: ShapeSpec, *, reduced: bool = False,
+                    prefill_chunk: int | None = None,
+                    paged: Any = None) -> dict:
+        """Meta-tensor stand-ins for every model input of a shape (the
+        dry-run contract; nothing is allocated), in the reference's
+        dtypes.
+
+        For decode shapes, ``cur_len`` is the (B,) per-slot position
+        vector the continuous-batching server feeds.  ``prefill_chunk=T``
+        describes the chunked :meth:`prefill_step` inputs instead (tokens
+        (B, T), per-slot positions and lengths).  ``paged`` (a
+        :class:`~repro_torch.runtime.kv.PagedKVSpec`) switches the state
+        tree to the page-pool layout and adds the ``page_table`` (and,
+        for decode, the per-slot ``active`` gate) of the paged steps."""
+
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def meta(shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            out = {"tokens": meta((B, S)), "labels": meta((B, S))}
+            if cfg.family == "vlm":
+                out["img_embeds"] = meta((B, cfg.n_img_tokens, cfg.d_model),
+                                         torch.bfloat16)
+            if cfg.is_encdec:
+                out["frames"] = meta((B, cfg.enc_seq, cfg.d_model),
+                                     torch.bfloat16)
+            return out
+        state = abstract_params(self.decode_state_specs(B, S, paged))
+        paged_specs = {} if paged is None else {
+            "page_table": meta((B, paged.pages_per_slot))}
+        if prefill_chunk is not None:
+            return {"tokens": meta((B, prefill_chunk)), "state": state,
+                    "positions": meta((B,)), "lengths": meta((B,)),
+                    **paged_specs}
+        if paged is not None:
+            paged_specs["active"] = meta((B,), torch.bool)
+        return {"tokens": meta((B, 1)), "state": state,
+                "cur_len": meta((B,)), **paged_specs}
 
     @staticmethod
     def _paged_writes(state, page_table, pos, gate):

@@ -26,11 +26,14 @@ has no RoPE and no mask, and never takes the flash kernel.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 
 from ..configs.base import ArchConfig
+from ..distribute.sharding import current_ctx
+from ..distribute.sharding import logical_constraint as lc
 from .common import DEFAULT_DTYPE, PSpec, rms_norm, rope
 
 NEG_INF = -1e30
@@ -133,8 +136,85 @@ def _positions_standard(positions: torch.Tensor, S: int) -> bool:
     which honors the caller's positions).  Reads the positions back to
     the host: one sync per call."""
 
+    if getattr(positions, "_arange", False):
+        return True
     want = torch.arange(S, dtype=positions.dtype, device=positions.device)
     return bool(torch.equal(positions, want.expand_as(positions)))
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: int | None) -> torch.Tensor:
+    """The flash kernel on (B, H, S, D) q/k/v; on DTensors, on each
+    rank's shard.
+
+    local_map region: q, k, v and the output placed by the logical axes
+    ("batch", "heads", None, None) -- B over the batch rule's mesh dims,
+    H over the heads rule's, S and D whole on every rank (inputs
+    sharded otherwise are redistributed first), so attention on a shard
+    is exact and the kernel takes plain local tensors."""
+
+    from ..kernels.flash_attention.ops import flash_attention
+
+    def run(q, k, v):
+        from torch._subclasses.fake_tensor import is_fake
+        if is_fake(q):
+            # the dry run's fake shards: stand in the kernel's cost, an
+            # O(S·D) output and the attention FLOPs, for the plain
+            # version's O(S²) scores
+            return torch.ops.aten._scaled_dot_product_flash_attention(
+                q, k, v, is_causal=causal)[0]
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    ctx = current_ctx()
+    if ctx is None or not _is_dtensor(q):
+        return run(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+    pl = ctx.placements(("batch", "heads", None, None), tuple(q.shape))
+    return local_map(run, out_placements=list(pl),
+                     in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def _on_shards(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               aux: torch.Tensor, *args, **kw) -> torch.Tensor:
+    """``fn(q, k, v, aux, *args, **kw)``, an attention core over
+    (B, H, T, D) q and (B, Hkv, S, D) k/v; on DTensors, on each rank's
+    shard.
+
+    local_map region: q, k, v and the output placed by the logical axes
+    ("batch", "heads", None, None) -- heads sharded only where both H and
+    Hkv divide the mesh, so each shard keeps whole head groups -- T, S
+    and D whole; ``aux`` (a mask or positions, leading dim B or 1) over
+    the batch rule's mesh dims when its leading dim is B.  DTensor cannot
+    run these products itself once batch and heads are both sharded (a
+    bmm over the flattened pair), and on a shard they are exact."""
+
+    ctx = current_ctx()
+    if ctx is None or not _is_dtensor(q):
+        return fn(q, k, v, aux, *args, **kw)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+    heads = ("batch", "heads", None, None)
+    pq = ctx.placements(heads, tuple(q.shape))
+    pk = ctx.placements(heads, tuple(k.shape))
+    if pq != pk:
+        pq = pk = ctx.placements(("batch", None, None, None), tuple(q.shape))
+    lead = ("batch",) if aux.shape[0] == q.shape[0] else (None,)
+    pa = ctx.placements(lead + (None,) * (aux.dim() - 1), tuple(aux.shape))
+    if not isinstance(aux, DTensor):
+        from torch.distributed.tensor import distribute_tensor
+        aux = distribute_tensor(aux, q.device_mesh, pa, src_data_rank=None)
+    run = functools.partial(fn, **kw)
+    return local_map(run, out_placements=list(pq),
+                     in_placements=(pq, pk, pk, pa) + (None,) * len(args),
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v, aux, *args)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
 
 
 def attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -157,21 +237,22 @@ def attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
         k = rope(k, positions, cfg.rope_theta)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    q = lc(q, "batch", "heads", "seq", None)
+    k = lc(k, "batch", "heads", "seq", None)
 
     if cross:
         mask = torch.ones((1, 1, S, xkv.shape[1]), dtype=torch.bool,
                           device=x.device)
-        o = _sdpa(q, k, v, mask, cfg.hd ** -0.5)
+        o = _on_shards(_sdpa, q, k, v, mask, cfg.hd ** -0.5)
     elif use_flash and _flash_supported(q) \
             and _positions_standard(positions, S):
-        from ..kernels.flash_attention.ops import flash_attention
         # window only applies under causality in the plain paths; match
         # that here so use_flash never changes semantics
-        o = flash_attention(q, k, v, causal=causal,
-                            window=window if causal else None)
+        o = _flash(q, k, v, causal=causal,
+                   window=window if causal else None)
     elif causal and S > Q_CHUNK_THRESHOLD:
-        o = _sdpa_qchunked(q, k, v, positions, cfg.hd ** -0.5,
-                           causal=True, window=window)
+        o = _on_shards(_sdpa_qchunked, q, k, v, positions, cfg.hd ** -0.5,
+                       causal=True, window=window)
     else:
         if not causal:
             mask = torch.ones((1, 1, S, S), dtype=torch.bool,
@@ -182,8 +263,10 @@ def attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
             mask = ki <= qi
             if window is not None:
                 mask &= ki >= qi - window + 1
-        o = _sdpa(q, k, v, mask, cfg.hd ** -0.5)
-    return torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+        o = _on_shards(_sdpa, q, k, v, mask, cfg.hd ** -0.5)
+    o = lc(o, "batch", "heads", "seq", None)
+    out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+    return lc(out, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -240,13 +323,27 @@ def decode_attention(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
         k_new = rope(k_new, positions, cfg.rope_theta)
 
     slot = torch.remainder(cur_len, C)            # (B,) ring for SWA
-    rows = torch.arange(B, device=x.device)
-    for name, new in (("k", k_new), ("v", v_new)):
-        buf = cache[name]
-        val = new[:, :, 0].to(buf.dtype)          # (B, Hkv, hd)
+    if _is_dtensor(cache["k"]):
+        # a DTensor cache (batch, kv heads or ring slots sharded) takes
+        # the write as a masked select over the ring, which DTensor
+        # shards like any elementwise op; the index write below has no
+        # sharding strategy.  Same values, one pass over the ring.
+        hit = torch.arange(C, device=x.device)[None, :] == slot[:, None]
         if active is not None:
-            val = torch.where(active[:, None, None], val, buf[rows, :, slot])
-        buf[rows, :, slot] = val
+            hit = hit & active[:, None]
+        for name, new in (("k", k_new), ("v", v_new)):
+            buf = cache[name]
+            buf.copy_(torch.where(hit[:, None, :, None], new.to(buf.dtype),
+                                  buf))
+    else:
+        rows = torch.arange(B, device=x.device)
+        for name, new in (("k", k_new), ("v", v_new)):
+            buf = cache[name]
+            val = new[:, :, 0].to(buf.dtype)      # (B, Hkv, hd)
+            if active is not None:
+                val = torch.where(active[:, None, None], val,
+                                  buf[rows, :, slot])
+            buf[rows, :, slot] = val
 
     # validity per slot: ring index i last held absolute position
     # cur_len[b] - ((slot[b] - i) mod C)
@@ -260,10 +357,10 @@ def decode_attention(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
         valid = idx <= cl                             # (B, C)
     mask = valid[:, None, None, None, :]              # (B, 1, 1, 1, C)
 
-    o = _grouped_sdpa(q, cache["k"], cache["v"], mask,
-                      cfg.hd ** -0.5).to(x.dtype)
+    o = _on_shards(_grouped_sdpa, q, cache["k"], cache["v"], mask,
+                   cfg.hd ** -0.5).to(x.dtype)
     out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
-    return out, cache
+    return lc(out, "batch", "seq", "embed"), cache
 
 
 def decode_attention_chunked(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -319,8 +416,10 @@ def decode_attention_chunked(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
     k_all = torch.cat([cache["k"].float(), k_new.float()], dim=2)
     v_all = torch.cat([cache["v"].float(), v_new.float()], dim=2)
-    o = _grouped_sdpa(q, k_all, v_all, mask, cfg.hd ** -0.5).to(x.dtype)
-    out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+    o = _on_shards(_grouped_sdpa, q, k_all, v_all, mask,
+                   cfg.hd ** -0.5).to(x.dtype)
+    out = lc(torch.einsum("bhsk,hkd->bsd", o, p["wo"]), "batch", "seq",
+             "embed")
 
     if write:
         # ring scatter: chunk token t lands in slot pos[t] mod C; each
@@ -484,9 +583,10 @@ def decode_attention_chunked_paged(p: dict, cfg: ArchConfig, x: torch.Tensor,
         mask &= kp >= qp - window + 1
     mask = mask[:, None, None, :, :]                    # (B, 1, 1, T, M*ps)
 
-    o = _grouped_sdpa(q, k, v, mask, cfg.hd ** -0.5).to(x.dtype)
+    o = _on_shards(_grouped_sdpa, q, k, v, mask,
+                   cfg.hd ** -0.5).to(x.dtype)
     out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
-    return out, pool
+    return lc(out, "batch", "seq", "embed"), pool
 
 
 def decode_attention_paged(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -499,8 +599,10 @@ def decode_attention_paged(p: dict, cfg: ArchConfig, x: torch.Tensor,
     ``writes`` from :func:`paged_writes` with positions ``cur_len`` and
     the per-slot ``active`` gate."""
 
-    return decode_attention_chunked_paged(p, cfg, x, pool, page_table,
-                                          cur_len, writes, window=window)
+    out, pool = decode_attention_chunked_paged(p, cfg, x, pool, page_table,
+                                               cur_len, writes,
+                                               window=window)
+    return lc(out, "batch", "seq", "embed"), pool
 
 
 def decode_cross_attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -515,7 +617,7 @@ def decode_cross_attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
     k, v = _repeat_kv(enc_kv["k"], n_rep), _repeat_kv(enc_kv["v"], n_rep)
     mask = torch.ones((1, 1, 1, k.shape[2]), dtype=torch.bool,
                       device=x.device)
-    o = _sdpa(q, k, v, mask, cfg.hd ** -0.5)
+    o = _on_shards(_sdpa, q, k, v, mask, cfg.hd ** -0.5)
     return torch.einsum("bhsk,hkd->bsd", o, p["wo"])
 
 

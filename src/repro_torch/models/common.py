@@ -93,6 +93,20 @@ def init_params(tree, generator: torch.Generator, device=None):
     return tree_map(make, tree)
 
 
+def abstract_params(tree):
+    """Meta tensors of the specs' shapes and dtypes: the dry run's
+    stand-ins, which allocate nothing."""
+
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), tree)
+
+
+def axes_tree(tree):
+    """The logical-axes tree (leaf = tuple of axis names)."""
+
+    return tree_map(lambda s: s.axes, tree)
+
+
 # ---------------------------------------------------------------------------
 # Numerics
 # ---------------------------------------------------------------------------
@@ -137,14 +151,75 @@ def softmax_cross_entropy(logits: torch.Tensor,
                           labels: torch.Tensor) -> torch.Tensor:
     """Token-mean CE; logits (..., V) any float dtype, computed in f32."""
 
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    lse, gold = ce_terms(logits.float(), labels)
     return torch.mean(lse - gold)
+
+
+def ce_terms(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp, gold logit) over the last dim of f32 ``logits``.
+
+    On a DTensor the vocab dim may be sharded: the logsumexp is taken as
+    max + log(sum(exp(x - max))), whose two reductions DTensor does as
+    small all-reduces, and the gold logit in a local_map region
+    (:func:`_gold_on_shards`); DTensor's own gather and logsumexp gather
+    the whole vocab onto every rank, forward and backward."""
+
+    from ..distribute.sharding import current_ctx
+    if current_ctx() is None or not _is_dtensor(logits):
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return lse, gold
+    from ..distribute.sharding import logical_constraint as lc
+    lead = ("batch",) + ("seq",) * (logits.dim() - 2)
+    m = lc(torch.amax(logits, dim=-1, keepdim=True).detach(), *lead, None)
+    z = lc(torch.sum(torch.exp(logits - m), dim=-1, keepdim=True), *lead,
+           None)
+    lse = (m + torch.log(z))[..., 0]
+    return lse, lc(_gold_on_shards(logits, labels), *lead)
+
+
+def _gold_on_shards(logits, labels):
+    """``logits[..., labels]`` of a DTensor whose last (vocab) dim may be
+    sharded.
+
+    local_map region: logits as they are placed, labels placed like its
+    leading dims; out a partial sum over the mesh dims that shard the
+    vocab (each rank picks the labels in its vocab range, zero
+    elsewhere), sharded like the logits elsewhere.  The logits' gradient
+    is each rank's own one-hot rows."""
+
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distribute.sharding import shard_offset
+    lp = tuple(logits.placements)
+    last = logits.dim() - 1
+    vocab_dims = [m for m, p in enumerate(lp)
+                  if isinstance(p, Shard) and p.dim == last]
+    bp = tuple(Replicate() if m in vocab_dims else p
+               for m, p in enumerate(lp))
+    out_p = [Partial() if m in vocab_dims else p for m, p in enumerate(bp)]
+    lo = shard_offset(logits, last)
+
+    def pick(x, lab):
+        idx = lab.long() - lo
+        hit = (idx >= 0) & (idx < x.shape[-1])
+        g = torch.gather(x, -1, torch.where(hit, idx, 0)[..., None])[..., 0]
+        return g * hit.to(g.dtype)
+
+    return local_map(pick, out_placements=out_p, in_placements=(lp, bp),
+                     device_mesh=logits.device_mesh,
+                     redistribute_inputs=True)(logits, labels)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
 
 
 __all__ = [
     "PSpec", "tree_map", "tree_leaves", "stack_specs",
-    "init_params", "rms_norm", "rope", "swiglu", "softmax_cross_entropy",
+    "init_params", "abstract_params", "axes_tree", "rms_norm", "rope",
+    "swiglu", "softmax_cross_entropy", "ce_terms",
     "DEFAULT_DTYPE",
 ]

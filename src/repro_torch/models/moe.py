@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..distribute.sharding import current_ctx
+from ..distribute.sharding import logical_constraint as lc
 from .common import PSpec
 
 
@@ -50,7 +52,9 @@ def capacity(cfg: ArchConfig, tokens: int) -> int:
 def _route(cfg: ArchConfig, p: dict, x2: torch.Tensor):
     """x2: (T, d) -> gates (T, k) f32, idx (T, k) int64."""
 
-    logits = x2.float() @ p["router"].float()
+    # whole over the experts: DTensor's top-k over a sharded dim is not
+    # the global one
+    logits = lc(x2.float() @ p["router"].float(), "batch", None)
     top, idx = torch.topk(logits, cfg.moe.top_k, dim=-1)
     return torch.softmax(top, dim=-1), idx   # renormalized over the top-k
 
@@ -75,7 +79,9 @@ def _experts(p: dict, xd: torch.Tensor) -> torch.Tensor:
 
     h = F.silu(torch.einsum("becd,edf->becf", xd, p["wg"])) * \
         torch.einsum("becd,edf->becf", xd, p["wu"])
-    return torch.einsum("becf,efd->becd", h, p["wd"])
+    h = lc(h, "batch", "experts", None, "expert_mlp")
+    return lc(torch.einsum("becf,efd->becd", h, p["wd"]), "batch",
+              "experts", None, "embed")
 
 
 def _shared(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -92,18 +98,51 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     slot = torch.where(keep, flat_e * C + my_pos, E * C)  # E*C: trash row
 
     x_rep = torch.repeat_interleave(x, k, dim=1)          # (B, S*k, d)
-    xd = torch.zeros((B, E * C + 1, d), dtype=x.dtype, device=x.device)
-    xd.scatter_add_(1, slot[..., None].expand(-1, -1, d), x_rep)
-    yo = _experts(p, xd[:, :E * C].reshape(B, E, C, d))
+    # the scatter stays local per batch shard (slot indices are
+    # row-local); the reshard to expert sharding below is the EP
+    # all-to-all
+    xd = _scatter_rows(slot, x_rep, E * C + 1)
+    xd = lc(xd, "batch", None, "embed")
+    xd = xd[:, :E * C].reshape(B, E, C, d)
+    xd = lc(xd, "batch", "experts", None, "embed")
+    yo = _experts(p, xd)
 
     flat = yo.reshape(B, E * C, d)
+    flat = lc(flat, "batch", None, "embed")   # combine all-to-all back
     picked = torch.take_along_dim(
         flat, torch.clamp(slot, 0, E * C - 1)[..., None], dim=1)
     picked = picked * (keep[..., None] * gates[..., None]).to(x.dtype)
     y = picked.reshape(B, S, k, d).sum(dim=2)
     if cfg.moe.shared_experts:
         y = y + _shared(p, x)
-    return y
+    return lc(y, "batch", "seq", "embed")
+
+
+def _scatter_rows(slot: torch.Tensor, x_rep: torch.Tensor,
+                  rows: int) -> torch.Tensor:
+    """(B, rows, d) buffer with each (B, S*k) token of ``x_rep`` added at
+    row ``slot`` of its batch row.
+
+    On DTensors, a local_map region: ``slot`` (B, S*k) and ``x_rep``
+    (B, S*k, d) come in, and the buffer goes out, with B over the batch
+    rule's mesh dims and every other dim whole, so each rank scatters
+    its own batch rows."""
+
+    def scatter(slot, x_rep):
+        B, T, d = x_rep.shape
+        xd = torch.zeros((B, rows, d), dtype=x_rep.dtype,
+                         device=x_rep.device)
+        return xd.scatter_add_(1, slot[..., None].expand(-1, -1, d), x_rep)
+
+    ctx = current_ctx()
+    if ctx is None or not _is_dtensor(x_rep):
+        return scatter(slot, x_rep)
+    from torch.distributed.tensor.experimental import local_map
+    p2 = ctx.placements(("batch", None), tuple(slot.shape))
+    p3 = ctx.placements(("batch", None, None), tuple(x_rep.shape))
+    return local_map(scatter, out_placements=list(p3),
+                     in_placements=(p2, p3), device_mesh=x_rep.device_mesh,
+                     redistribute_inputs=True)(slot, x_rep)
 
 
 def moe_forward_einsum(p: dict, cfg: ArchConfig,
@@ -128,6 +167,11 @@ def moe_forward_einsum(p: dict, cfg: ArchConfig,
     if cfg.moe.shared_experts:
         y = y + _shared(p, x)
     return y
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
 
 
 __all__ = ["moe_specs", "moe_forward", "moe_forward_einsum", "capacity"]

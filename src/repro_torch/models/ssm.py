@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..distribute.sharding import current_ctx
+from ..distribute.sharding import logical_constraint as lc
 from .common import DEFAULT_DTYPE, PSpec
 
 
@@ -58,14 +60,34 @@ def _split_in(cfg: ArchConfig, proj: torch.Tensor):
     return torch.split(proj, [di, di, N, N, nh], dim=-1)
 
 
-def _depthwise(hist: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise correlation of (B, L, C) with a (W, C) kernel over its
-    valid positions: (B, L - W + 1, C).  Both packages correlate (no
-    flip): out[t, c] = sum_w hist[t + w, c] * w[w, c]."""
+def _depthwise(hist: torch.Tensor, w: torch.Tensor,
+               pad: int = 0) -> torch.Tensor:
+    """Depthwise correlation of (B, L, C), with ``pad`` zero rows put
+    before it, with a (W, C) kernel over its valid positions:
+    (B, pad + L - W + 1, C).  Both packages correlate (no flip):
+    out[t, c] = sum_w hist[t + w, c] * w[w, c]."""
 
-    C = w.shape[1]
-    out = F.conv1d(hist.transpose(1, 2), w.t()[:, None, :], groups=C)
-    return out.transpose(1, 2)
+    def conv(hist, w):
+        if pad:
+            hist = F.pad(hist, (0, 0, pad, 0))
+        out = F.conv1d(hist.transpose(1, 2), w.t()[:, None, :],
+                       groups=w.shape[1])
+        return out.transpose(1, 2)
+
+    ctx = current_ctx()
+    if ctx is None or not _is_dtensor(hist):
+        return conv(hist, w)
+    # local_map region: hist (B, L, C) and the output over the batch
+    # rule's mesh dims, L and C whole, the (W, C) kernel whole: DTensor's
+    # convolution has no depthwise (grouped) strategy, and torch 2.11's
+    # planner fails on the pad of a sharded input
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    ph = ctx.placements(("batch", None, None), tuple(hist.shape))
+    pw = (Replicate(),) * len(ph)
+    return local_map(conv, out_placements=list(ph), in_placements=(ph, pw),
+                     device_mesh=hist.device_mesh,
+                     redistribute_inputs=True)(hist, w)
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -73,8 +95,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     """Depthwise causal conv over (B, S, C) with kernel (W, C): one
     ``conv1d(groups=C)`` over the input padded W-1 on the left."""
 
-    W = w.shape[0]
-    return F.silu(_depthwise(F.pad(x, (0, 0, W - 1, 0)), w) + b)
+    return F.silu(_depthwise(x, w, pad=w.shape[0] - 1) + b)
 
 
 def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -143,6 +164,38 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y[:, :S_orig]
 
 
+def _ssd_on_shards(x, dt, A, Bm, Cm, chunk: int, cd) -> torch.Tensor:
+    """:func:`ssd_chunked`; on DTensors, on each rank's shard.
+
+    local_map region: x (B, S, H, P) and the output placed by ("batch",
+    None, "heads", None), dt (B, S, H) by ("batch", None, "heads"), A (H,)
+    by ("heads",), Bm and Cm (B, S, N) by ("batch", None, None): the scan
+    is independent per (batch row, head), so a shard's is exact, and its
+    chunked products need no sharding strategy."""
+
+    ctx = current_ctx()
+    if ctx is None or not _is_dtensor(x):
+        return ssd_chunked(x, dt, A, Bm, Cm, chunk, compute_dtype=cd)
+    from torch.distributed.tensor.experimental import local_map
+    px = ctx.placements(("batch", None, "heads", None), tuple(x.shape))
+    pd = ctx.placements(("batch", None, "heads"), tuple(dt.shape))
+    pa = ctx.placements(("heads",), tuple(A.shape))
+    pb = ctx.placements(("batch", None, None), tuple(Bm.shape))
+
+    def run(x, dt, A, Bm, Cm):
+        return ssd_chunked(x, dt, A, Bm, Cm, chunk, compute_dtype=cd)
+
+    return local_map(run, out_placements=list(px),
+                     in_placements=(px, pd, pa, pb, pb),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, dt, A, Bm, Cm)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def ssm_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence SSD block. x: (B,S,d) -> (B,S,d)."""
 
@@ -155,13 +208,18 @@ def ssm_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["a_log"].float())
     xh = xin.reshape(*xin.shape[:2], nh, P)
+    # SSD heads over the model axis: the (B, nc, Q, Q, H) decay tensor is
+    # the memory hot-spot and follows these constraints
+    xh = lc(xh, "batch", "seq", "heads", None)
+    dt = lc(dt, "batch", "seq", "heads")
     cd = getattr(torch, cfg.ssd_dtype)
-    y = ssd_chunked(xh.to(cd), dt, A, Bm.to(cd), Cm.to(cd), cfg.ssm.chunk,
-                    compute_dtype=cd)
+    y = _ssd_on_shards(xh.to(cd), dt, A, Bm.to(cd), Cm.to(cd),
+                       cfg.ssm.chunk, cd)
+    y = lc(y, "batch", "seq", "heads", None)
     y = y + p["D"].float()[None, None, :, None] * xh.float()
     y = y.reshape(*xin.shape[:2], di).to(x.dtype)
     y = y * F.silu(z)
-    return y @ p["w_out"]
+    return lc(y @ p["w_out"], "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------

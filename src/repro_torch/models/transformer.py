@@ -38,11 +38,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
+from ..distribute.sharding import current_ctx, gather_fsdp, shard_offset
+from ..distribute.sharding import logical_constraint as lc
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .common import (PSpec, rms_norm, softmax_cross_entropy, stack_specs,
-                     tree_leaves, tree_map)
+from .common import (PSpec, ce_terms, rms_norm, softmax_cross_entropy,
+                     stack_specs, tree_leaves, tree_map)
 
 
 # ---------------------------------------------------------------------------
@@ -65,9 +67,11 @@ def mlp_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.mlp_act == "gelu":
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
-        return h @ p["w2"] + p["b2"]
+        h = lc(h, "batch", "seq", "mlp")
+        return lc(h @ p["w2"] + p["b2"], "batch", "seq", "embed")
     h = F.silu(x @ p["wg"]) * (x @ p["wu"])
-    return h @ p["wd"]
+    h = lc(h, "batch", "seq", "mlp")
+    return lc(h @ p["wd"], "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +140,7 @@ def layer_forward(p: dict, cfg: ArchConfig, kind: str, x: torch.Tensor,
     elif kind == "cross":
         a = attn.attention(p["xattn"], cfg, h, positions, x_kv=enc_out)
         x = x + torch.tanh(p["gate"]).to(x.dtype) * a
-    return ffn_forward(p, cfg, kind, x)
+    return lc(ffn_forward(p, cfg, kind, x), "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +198,16 @@ def block_params(blocks: dict, i: int) -> dict:
     return tree_map(lambda a: a[i], blocks)
 
 
+def gather_params(tree):
+    """A parameter tree in its compute placements
+    (:func:`~repro_torch.distribute.sharding.gather_fsdp` on each leaf);
+    the tree itself without a mesh context."""
+
+    if current_ctx() is None:
+        return tree
+    return tree_map(gather_fsdp, tree)
+
+
 # the counterpart of jax.checkpoint_policies.checkpoint_dots: the outputs
 # of matrix products are saved, everything else is recomputed
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -234,6 +248,7 @@ def _run_blocks(cfg: ArchConfig, blocks: dict, x: torch.Tensor,
         bp = block_params(blocks, i)
 
         def body(h, bp=bp):
+            bp = gather_params(bp)
             for j, kind in enumerate(kinds):
                 h = layer_forward(bp[f"{j}_{kind}"], cfg, kind, h, positions,
                                   enc_out=enc_out, causal=causal)
@@ -244,17 +259,69 @@ def _run_blocks(cfg: ArchConfig, blocks: dict, x: torch.Tensor,
 
 
 def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    B, S = tokens.shape
-    rows = tokens.reshape(-1).to(torch.int64)
-    return params["embed"].index_select(0, rows).reshape(B, S, -1)
+    # the reference's constraint after the embedding (its forward_lm and
+    # hidden_lm), here for every caller
+    w = gather_fsdp(params["embed"])
+    tokens = tokens.to(torch.int64)
+    if current_ctx() is None or not isinstance(w, _dtensor_type()):
+        return F.embedding(tokens, w)
+    return lc(_vocab_parallel_embed(tokens, w), "batch", "seq", "embed")
+
+
+def _dtensor_type():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _vocab_parallel_embed(tokens, w):
+    """The lookup of (B, S) tokens in a (V, d) DTensor table whose vocab
+    dim may be sharded.
+
+    local_map region: tokens as they are placed, the table with its d dim
+    whole (gathered if it was not) and its V dim sharded or not; out
+    (B, S, d) a partial sum over the mesh dims that shard V (each rank
+    looks up the tokens in its vocab range, zeros elsewhere), sharded
+    like the tokens' batch dim on the others.  The table's gradient comes
+    back as each rank's rows, a partial sum over the tokens' batch dims.
+    DTensor's own sharded lookup leaves a masked partial sum that its
+    backward cannot add to the tied logits' gradient."""
+
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w.device_mesh
+    wp = tuple(Replicate() if isinstance(p, Shard) and p.dim != 0 else p
+               for p in w.placements)
+    if wp != tuple(w.placements):
+        w = w.redistribute(mesh, wp)
+    tp = tuple(tokens.placements)
+    vocab_dims = [m for m, p in enumerate(wp) if isinstance(p, Shard)]
+    lo = shard_offset(w, 0)
+    out_p = [Partial() if m in vocab_dims else
+             (Shard(0) if isinstance(tp[m], Shard) and tp[m].dim == 0
+              else Replicate()) for m in range(mesh.ndim)]
+    grad_p = [Shard(0) if m in vocab_dims else
+              (Partial() if isinstance(tp[m], Shard) else Replicate())
+              for m in range(mesh.ndim)]
+
+    def lookup(tok, wl):
+        rows = tok - lo
+        hit = (rows >= 0) & (rows < wl.shape[0])
+        x = F.embedding(torch.where(hit, rows, 0), wl)
+        return x * hit[..., None].to(x.dtype)
+
+    return local_map(lookup, out_placements=out_p, in_placements=(tp, wp),
+                     in_grad_placements=(tp, grad_p), device_mesh=mesh,
+                     redistribute_inputs=True)(tokens, w)
 
 
 def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["ln_f"])
+    x = rms_norm(x, gather_fsdp(params["ln_f"]))
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+        logits = torch.einsum("bsd,vd->bsv", x, gather_fsdp(params["embed"]))
     else:
-        logits = x @ params["unembed"]
+        logits = x @ gather_fsdp(params["unembed"])
+    logits = lc(logits, "batch", "seq", "vocab")
     return logits.to(getattr(torch, cfg.logits_dtype))
 
 
@@ -264,7 +331,12 @@ def _logits(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, device=device).expand(B, S)
+    """(B, S) positions ``0 .. S-1``, marked so that the flash gate takes
+    them without reading them back (:func:`attention._positions_standard`)."""
+
+    pos = torch.arange(S, device=device).expand(B, S)
+    pos._arange = True
+    return pos
 
 
 def _trunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -288,7 +360,8 @@ def hidden_lm(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
               img_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Decoder trunk up to (and including) the final norm: no logits."""
 
-    return rms_norm(_trunk(params, cfg, tokens, img_embeds), params["ln_f"])
+    return rms_norm(_trunk(params, cfg, tokens, img_embeds),
+                    gather_fsdp(params["ln_f"]))
 
 
 def encode(params: dict, cfg: ArchConfig,
@@ -303,7 +376,7 @@ def encode(params: dict, cfg: ArchConfig,
     enc = _run_blocks(cfg, params["enc_blocks"], enc,
                       _positions(B, Senc, frames.device), causal=False,
                       kinds=["encoder"])
-    return rms_norm(enc, params["enc_ln_f"])
+    return rms_norm(enc, gather_fsdp(params["enc_ln_f"]))
 
 
 def forward_encdec(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -320,6 +393,7 @@ def forward_encdec(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
         xp = block_params(params["xattn_blocks"], i)
 
         def body(h, dp=dp, xp=xp):
+            dp, xp = gather_params(dp), gather_params(xp)
             h = layer_forward(dp, cfg, "dense", h, positions)
             return h + attn.attention(xp["x"], cfg, rms_norm(h, xp["ln_x"]),
                                       positions, x_kv=enc)
@@ -355,7 +429,8 @@ def _chunked_ce(params: dict, cfg: ArchConfig, h: torch.Tensor,
     (numerically the fused CE up to summation order)."""
 
     B, S, d = h.shape
-    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    w = gather_fsdp(params["embed"] if cfg.tie_embeddings
+                    else params["unembed"])
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, S, chunk):
         hx, lx = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
@@ -363,9 +438,7 @@ def _chunked_ce(params: dict, cfg: ArchConfig, h: torch.Tensor,
             logits = torch.einsum("bsd,vd->bsv", hx, w)
         else:
             logits = hx @ w
-        logits = logits.float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lx[..., None].long())[..., 0]
+        lse, gold = ce_terms(logits.float(), lx)
         total = total + torch.sum(lse - gold)
     return total / (B * S)
 
@@ -385,6 +458,7 @@ def lm_loss(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 
 __all__ = [
     "mlp_specs", "mlp_forward", "layer_specs", "layer_forward",
-    "ffn_forward", "stack_param_specs", "block_params", "forward_lm",
+    "ffn_forward", "stack_param_specs", "block_params", "gather_params",
+    "forward_lm",
     "forward_encdec", "encode", "hidden_lm", "lm_loss", "sinusoid_at",
 ]

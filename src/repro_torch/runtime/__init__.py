@@ -14,8 +14,8 @@ from .serve import Request, Server
 from .speculate import (DRAFTER_KINDS, DraftModelDrafter, Drafter,
                         NGramDrafter, SpecDepthTunable, choose_spec_depth,
                         make_drafter, spec_depth_tunable)
-from .train import (TrainConfig, TrainState, build_train_step,
-                    init_train_state)
+from .train import (TrainConfig, TrainState, abstract_train_state,
+                    build_train_step, init_train_state)
 from .tunables import (DecodeBatchTunable, KVPageTunable, PrefillChunkTunable,
                        SchedulerTunable, choose_batch, choose_kv_page,
                        choose_prefill_chunk, choose_scheduler,
@@ -42,4 +42,4 @@ __all__ = ["Server", "Request", "Scheduler", "make_scheduler",
            "drive_trace", "summarize",
            "History", "LoopConfig", "SimulatedFailure", "run_training",
            "TrainConfig", "TrainState", "build_train_step",
-           "init_train_state"]
+           "init_train_state", "abstract_train_state"]

@@ -52,13 +52,46 @@ def init_train_state(api: ModelAPI, generator: torch.Generator | int,
     return TrainState(params, adamw_init(params), residual)
 
 
+def abstract_train_state(api: ModelAPI, tcfg: TrainConfig) -> TrainState:
+    """Meta-tensor train state for the dry run: the parameters in their
+    dtypes, f32 moments (and residual), an int32 step."""
+
+    params = api.abstract()
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    opt = OptState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                   m=tree_map(f32, params), v=tree_map(f32, params))
+    residual = tree_map(f32, params) if tcfg.compress_pod_grads else None
+    return TrainState(params, opt, residual)
+
+
 def _split_microbatches(batch: dict, m: int) -> list[dict]:
+    """``m`` microbatches of consecutive rows, as the reference's.  A
+    DTensor batch whose rows are split over n ranks is split within each
+    rank's rows instead (microbatch j holds rows ``[j·b/m, (j+1)·b/m)``
+    of every rank's b): DTensor cannot split a sharded dim into m
+    consecutive blocks that n does not divide.  The microbatches' sum,
+    the step's gradient, holds the same rows."""
+
+    from torch.distributed.tensor import DTensor, Shard
+
     def split(x):
         B = x.shape[0]
         if B % m:
             raise ValueError(f"batch {B} does not split into {m} "
                              f"microbatches")
-        return x.reshape(m, B // m, *x.shape[1:])
+        n = 1
+        if isinstance(x, DTensor):
+            for k, p in enumerate(x.placements):
+                if isinstance(p, Shard) and p.dim == 0:
+                    n *= x.device_mesh.size(k)
+        if n == 1:
+            return [x.reshape(m, B // m, *x.shape[1:])[j] for j in range(m)]
+        if (B // n) % m:
+            raise ValueError(f"{B // n} rows a rank do not split into {m} "
+                             f"microbatches")
+        x3 = x.reshape(n, m, B // (n * m), *x.shape[1:])
+        return [x3[:, j].reshape(B // m, *x.shape[1:]) for j in range(m)]
+
     parts = {k: split(v) for k, v in batch.items()}
     return [{k: v[j] for k, v in parts.items()} for j in range(m)]
 
@@ -74,8 +107,32 @@ def value_and_grad(api: ModelAPI, params, batch: dict):
         loss = api.loss(live, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-    it = iter(grads)
+    it = iter(_unnested(g) for g in grads)
     return loss.detach(), tree_map(lambda _: next(it), params)
+
+
+def _unnested(g):
+    """A gradient as one DTensor.  torch 2.11's autograd on the card
+    returns the gradient of a DTensor leaf used more than once (a stacked
+    layer leaf, the tied embedding) as a DTensor whose local tensor is
+    that gradient's DTensor; the inner one is the gradient."""
+
+    from torch.distributed.tensor import DTensor
+    while isinstance(g, DTensor) and isinstance(g._local_tensor, DTensor):
+        g = g._local_tensor
+    return g
+
+
+def _replicated(x):
+    """A DTensor metric with every rank holding its whole value (a loss
+    is a partial mean over the batch's ranks until reduced); any other
+    value itself."""
+
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh,
+                              [Replicate()] * x.device_mesh.ndim)
+    return x
 
 
 def build_train_step(api: ModelAPI, tcfg: TrainConfig
@@ -105,11 +162,13 @@ def build_train_step(api: ModelAPI, tcfg: TrainConfig
         params, opt, metrics = adamw_update(
             state.params, grads, state.opt, lr=lr,
             weight_decay=tcfg.weight_decay, clip_norm=tcfg.clip_norm)
-        metrics = dict(metrics, loss=loss)
+        metrics = {k: _replicated(v) for k, v in
+                   dict(metrics, loss=loss).items()}
         return TrainState(params, opt, residual), metrics
 
     return train_step
 
 
 __all__ = ["TrainConfig", "TrainState", "init_train_state",
+           "abstract_train_state",
            "build_train_step", "value_and_grad"]

@@ -230,3 +230,37 @@ def test_errors(tmp_path):
     mgr.save(1, {"w": torch.zeros(2)})
     with pytest.raises(OSError):
         mgr.wait()
+
+
+def test_dtensor_checkpoints_cross_both_ways_on_a_2x2_mesh(tmp_path):
+    """A reference checkpoint restores onto a (2, 2) gloo mesh through
+    ``sharding_fn`` (placements of ``shard_like``), bit for bit; a tree
+    of DTensors saved by the port loads in ``repro.checkpoint`` as full
+    arrays, bit for bit."""
+
+    from _torch_dist_workers import run as run_helper
+
+    rng = np.random.default_rng(5)
+    ref = {"w": rng.standard_normal((8, 12)).astype(np.float32),
+           "b": rng.standard_normal(12).astype(np.float32),
+           "s": np.asarray(3, np.int32)}
+    JS.save_checkpoint(str(tmp_path / "ref"), 2,
+                       {k: jnp.asarray(v) for k, v in ref.items()})
+    res = run_helper("ckpt", tmp_path / "run", tmp_path / "ref")
+    # w: embed over "data", mlp over "model"; b: mlp; s replicated
+    assert res["placements"] == {"w": "(Shard(dim=0), Shard(dim=1))",
+                                 "b": "(Replicate(), Shard(dim=0))",
+                                 "s": "(Replicate(), Replicate())"}
+    assert res["local_w"] == [4, 6]
+    got = np.load(tmp_path / "run" / "ckpt.npz")
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got[f"restored_{k}"], v)
+
+    template = {"w": jnp.zeros((8, 12), jnp.bfloat16),
+                "b": jnp.zeros(12, jnp.float32)}
+    tree, manifest = JS.load_checkpoint(str(tmp_path / "run" / "port_ckpt"),
+                                        template)
+    assert manifest["step"] == 7
+    np.testing.assert_array_equal(
+        np.asarray(tree["w"], np.float32), got["saved_w"])
+    np.testing.assert_array_equal(np.asarray(tree["b"]), got["saved_b"])

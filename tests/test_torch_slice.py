@@ -157,8 +157,18 @@ for name in ("repro_torch.obs", "repro_torch.obs.metrics",
              "repro_torch.tune.__main__", "repro_torch.verify.lint",
              "repro_torch.verify.cli", "repro_torch.verify.__main__",
              "repro_torch.runtime.tunables", "repro_torch.runtime.workload",
-             "repro_torch.models.ssm", "repro_torch.models.moe"):
+             "repro_torch.models.ssm", "repro_torch.models.moe",
+             "repro_torch.distribute", "repro_torch.distribute.sharding",
+             "repro_torch.distribute.pipeline", "repro_torch.launch.mesh",
+             "repro_torch.launch.cells", "repro_torch.launch.dryrun",
+             "repro_torch.launch.perf", "repro_torch.launch.roofline",
+             *("repro_torch.configs." + c for c in (
+                 "hymba_15b", "llama32_vision_90b", "llama4_maverick",
+                 "mamba2_27b", "minitron_8b", "mixtral_8x22b", "qwen15_4b",
+                 "qwen3_32b", "smollm_135m", "whisper_medium"))):
     assert name in names, name
+import torch.distributed as dist
+assert not dist.is_initialized()
 print(len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
