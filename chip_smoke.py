@@ -5,8 +5,9 @@ width), the model checker, the serving tunables, the card's calibration
 with the Server observed on it, the fleet rollout and verification
 CLIs, the other model families (hymba, mamba2, whisper, mixtral and
 llama-3.2-vision at full width, the last two cut in depth), training
-(smollm-135m at full width), and the sharded paths on a 1x1 mesh with
-the dry run of the production meshes on the card's host.
+(smollm-135m at full width), and the sharded paths of every family on
+a 1x1 mesh (llama4-maverick at one block) with the dry run of the
+production meshes on the card's host.
 
     python3 chip_smoke.py
 
@@ -164,13 +165,23 @@ Each phase prints one JSON line:
    saved from the mesh and loaded onto it bit-equal; (c) ``python -m
    repro_torch.launch.dryrun`` in the background from the phase's
    start, one subprocess a cell on all but one of the host's cores, train
-   cells at one microbatch: the four dense archs × the four shapes on
-   16 × 16, qwen3-32b train_4k on 2 × 16 × 16, the six other families'
-   train_4k (status and reason),
-   each priced by ``analyze`` on the H100 data sheet with its wall
-   seconds (a dense cell failing fails the phase); (d) ``lower_cell``
-   on a fake 1 × 1 group at (b)'s shape, its peak within 25 % of (b)'s
-   measured peak; then each kernel's launches over (a) and (b).
+   cells at one microbatch: all ten archs × the four shapes on 16 × 16,
+   qwen3-32b's train_4k on 2 × 16 × 16 (status and reason; the whole
+   matrix is ``tools/dryrun_matrix.py``'s), each priced by ``analyze``
+   on the H100 data sheet with its wall seconds (a cell that fails, or
+   is skipped where ``supports`` does not say so, fails the phase); (d)
+   ``lower_cell`` on a fake 1 × 1 group at (b)'s shape, its peak within
+   25 % of (b)'s measured peak; (e) hymba-1.5b, mamba2-2.7b and whisper-medium whole,
+   mixtral-8x22b at 2 layers, llama-3.2-vision-90b at one block, each
+   placed on the mesh: the forward at phase 12's S (flash under
+   ``local_map``) and a decode step at phase 12's batch over a 1,024
+   context against the unsharded ones, logits rel L2 1e-2, the written
+   state equal, each timed; (f) llama4-maverick at one block (a dense and
+   a 128-expert MoE layer, ~37 GB of bf16 weights): flash at (1, 40,
+   4096, 128) causal against the plain math layer by layer, then (e)'s
+   checks at S = 4096 and B = 2, with its peak memory; then each
+   kernel's launches over (a), (b), (e) and (f), and the phase's
+   seconds.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -327,8 +338,8 @@ FLEET_META_SPACE = {"top_k": [1, 2], "repeats": [1, 3]}
 # the same weights to FAMILY_CUT layers, the kernel against the plain math
 # and the Server against the offline forward.  mixtral-8x22b is cut to 2
 # of its 56 layers and llama-3.2-vision-90b to one block (4 dense + 1
-# cross of 100 layers): one card holds neither whole.  llama4-maverick is
-# not run (one block is ~37 GB of bf16 weights).
+# cross of 100 layers): one card holds neither whole.  llama4-maverick
+# (one block is ~37 GB of bf16 weights) runs in phase 14(f).
 FAMILY_CUT = 4
 FAMILIES = {
     "hymba-1.5b": dict(serve=dict(batch=4, context=2048, prefill_chunk=256),
@@ -349,11 +360,14 @@ FAMILIES = {
                                  requests=2, prompt_len=512, fwd_s=FWD_S,
                                  n_layers=5),
 }
-# flash at each family's attention shape, (B, H, S, D, causal, window)
+# flash at each family's attention shape, (B, H, S, D, causal, window);
+# llama4-maverick's block runs in phase 14(f)
 FAMILY_FLASH = {"hymba-1.5b": (1, 25, FWD_S, 64, True, 1024),
                 "whisper-medium": (1, 16, 512, 64, True, None),
                 "mixtral-8x22b": (1, 48, FWD_S, 128, True, 4096),
-                "llama-3.2-vision-90b": (1, 64, FWD_S, 128, True, None)}
+                "llama-3.2-vision-90b": (1, 64, FWD_S, 128, True, None),
+                "llama4-maverick-400b-a17b": (1, 40, FWD_S, 128, True,
+                                              None)}
 # (f) the serving driver on hymba at full width, as a user runs it
 FAMILY_DRIVER = ["--arch", "hymba-1.5b", "--preset", "full", "--requests",
                  "4", "--batch", "4", "--context", "2048", "--prompt-len",
@@ -407,6 +421,16 @@ DIST_DENSE = ("smollm-135m", "qwen1.5-4b", "minitron-8b", "qwen3-32b")
 DIST_OTHERS = ("mamba2-2.7b", "mixtral-8x22b", "llama4-maverick-400b-a17b",
                "llama-3.2-vision-90b", "hymba-1.5b", "whisper-medium")
 DIST_MULTI = ("qwen3-32b", "train_4k")
+# (e) the other families on the mesh at phase 12's widths and depths:
+# flash launches a forward (self-attention layers; whisper's encoder at
+# 1,500 frames does not tile by 128 and takes the plain math)
+DIST_FAMILY_FLASH = {"hymba-1.5b": 32, "mamba2-2.7b": 0,
+                     "whisper-medium": 24, "mixtral-8x22b": 2,
+                     "llama-3.2-vision-90b": 4}
+# (f) llama4-maverick at one block (a dense and a 128-expert MoE layer):
+# the forward at S = 4096, the decode at B = 2 over a 1,024 context
+MAVERICK = "llama4-maverick-400b-a17b"
+MAVERICK_BLOCK = dict(n_layers=2, fwd_s=FWD_S, batch=2, context=1024)
 # (c)'s train cells at one microbatch: the auto factor (4-16 at these
 # archs) repeats the same layers' work, and the fake run pays host
 # dispatch for every op (qwen3-32b's auto 16 took 593 s on a CPU)
@@ -3568,18 +3592,18 @@ def train(dev, gen, counters, peak_flops: float) -> dict:
 
 
 def _dryrun_jobs(tmp: Path) -> list:
-    """Phase 14(c)'s dry-run cells, longest first: each dense arch's
-    shapes on the single-pod mesh, qwen3-32b's train_4k on the multi-pod
-    mesh, and the other families' train_4k."""
+    """Phase 14(c)'s dry-run cells, longest first: every arch's shapes on
+    the single-pod mesh and qwen3-32b's train_4k on the multi-pod mesh
+    (the other families' multi-pod cells, 337 s of the host's work,
+    would add ~50 s to the phase: the whole matrix runs through
+    ``tools/dryrun_matrix.py`` instead)."""
 
     from repro_torch.configs import SHAPES
     jobs = []
-    for arch in DIST_DENSE:
+    for arch in DIST_DENSE + DIST_OTHERS:
         for shape in SHAPES:
             jobs.append((arch, shape, "--single-pod"))
     jobs.append((*DIST_MULTI, "--multi-pod"))
-    for arch in DIST_OTHERS:
-        jobs.append((arch, "train_4k", "--single-pod"))
     order = {"train_4k": 0, "prefill_32k": 1, "decode_32k": 2,
              "long_500k": 3}
     big = {a: i for i, a in enumerate(reversed(DIST_DENSE))}
@@ -3631,6 +3655,7 @@ def _start_dryrun(jobs: list, workers: int) -> dict:
 
 def _finish_dryrun(state: dict, jobs: list, smi: str) -> dict:
     from repro_torch.calibrate.spec import DEFAULT_SPEC
+    from repro_torch.configs import SHAPES, get_config, supports
     from repro_torch.launch.roofline import analyze
 
     for t in state["threads"]:
@@ -3659,14 +3684,137 @@ def _finish_dryrun(state: dict, jobs: list, smi: str) -> dict:
         emit("distributed", part="dryrun", spec="H100 data sheet",
              card=smi, **row)
         rows.append(row)
-        if arch in DIST_DENSE and rec["status"] == "failed":
-            failed.append((arch, shape, mesh, rec["reason"]))
-        if arch in DIST_DENSE and rec["status"] == "skipped" and \
-                shape != "long_500k":
-            failed.append((arch, shape, mesh, rec["reason"]))
+        # a cell fails the phase unless it ran, or was skipped where
+        # configs.supports says it is
+        ok, _ = supports(get_config(arch), SHAPES[shape])
+        if rec["status"] != ("ok" if ok else "skipped"):
+            failed.append((arch, shape, mesh, rec["status"], rec["reason"]))
     if failed:
-        raise AssertionError(f"dense dry-run cells failed: {failed}")
+        raise AssertionError(f"dry-run cells failed: {failed}")
     return {"rows": rows}
+
+
+def _mesh_inputs(cfg, B: int, S: int, gen, dev) -> dict:
+    """Tokens (B, S), plus bf16 frames (enc-dec) or image embeddings
+    (vlm) at scale 0.3, from ``gen``."""
+
+    import torch
+    out = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                   device=dev)}
+    if cfg.is_encdec:
+        out["frames"] = (torch.randn(B, cfg.enc_seq, cfg.d_model,
+                                     generator=gen, device=dev) * 0.3
+                         ).to(torch.bfloat16)
+    if cfg.family == "vlm":
+        out["img_embeds"] = (torch.randn(B, cfg.n_img_tokens, cfg.d_model,
+                                         generator=gen, device=dev) * 0.3
+                             ).to(torch.bfloat16)
+    return out
+
+
+def on_mesh(api, params, mesh, counters, total, gen, dev, *, fwd_s: int,
+            batch: int, context: int, n_flash: int, smi: str) -> dict:
+    """One model's ``forward`` and ``decode_step`` on ``mesh`` against
+    the unsharded ones from the same params (phase 14(a) for any family):
+    the forward at S = ``fwd_s`` (flash launches counted, ``n_flash``
+    wanted), its last-token logits within DIST_LOGITS_REL; a decode step
+    of ``batch`` slots over ``context`` (8 rows of history; whisper's
+    cross K/V from ``encode_cross_kv``), the logits within the same bound
+    and every leaf of the written state equal; each timed beside the
+    unsharded.  Adds each kernel's launches to ``total``."""
+
+    import torch
+    from repro_torch.distribute.sharding import place, shard_like, use_mesh
+    from repro_torch.launch.cells import batch_axes, rules_for_arch
+    from repro_torch.models.common import axes_tree, tree_leaves, tree_map
+
+    cfg = api.cfg
+    rules = rules_for_arch(cfg)
+    flash = counters[-1]
+    axes = batch_axes(cfg, None)
+    full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+    rel = lambda a, b: float((a.float() - b.float()).norm()
+                             / b.float().norm())
+
+    def placed(tree, ax):
+        return place(tree, shard_like(tree, ax, mesh, rules))
+
+    inp = _mesh_inputs(cfg, 1, fwd_s, gen, dev)
+    out: dict = {"arch": cfg.name, "S": fwd_s}
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        fwd = lambda: api.forward(params, inp)
+        want = fwd()[0, -1].float()
+        out["plain_ms"] = time_ms(fwd, 3, warmup=1)
+        out["plain_peak_bytes"] = torch.cuda.max_memory_allocated()
+        before = torch.cuda.memory_allocated()
+        with use_mesh(mesh, rules):
+            pm = placed(params, api.axes())
+            out["placed_bytes"] = torch.cuda.memory_allocated() - before
+            im = placed(inp, {k: axes[k] for k in inp})
+            mfwd = lambda: api.forward(pm, im)
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:
+                c.launches = 0
+            got = mfwd()
+            launched = flash.launches
+            for i, c in enumerate(counters):
+                total[i] += c.launches
+            got = full(got)[0, -1].float()
+            out["mesh_ms"] = time_ms(mfwd, 3, warmup=1)
+            out["mesh_peak_bytes"] = torch.cuda.max_memory_allocated()
+        out.update(flash_launches=launched, rel_l2=rel(got, want),
+                   bit_equal=bool(torch.equal(got, want)),
+                   max_abs_diff=float((got - want).abs().max()))
+        if launched != n_flash or not out["rel_l2"] <= DIST_LOGITS_REL:
+            raise AssertionError(f"{cfg.name} forward on the mesh: "
+                                 f"{launched} flash launches (want "
+                                 f"{n_flash}), rel L2 {out['rel_l2']}")
+        del got, want, im
+
+        # decode: every slot at position 8 after 8 rows of history
+        B, C = batch, context
+        state = api.init_decode_state(B, C, device=dev)
+        toks = _mesh_inputs(cfg, B, 9, gen, dev)
+        if cfg.is_encdec:
+            xkv = api.encode_cross_kv(params, toks["frames"])
+            for n in ("k", "v"):
+                state["xattn"][n].copy_(xkv[n])
+            del xkv
+        for t in range(8):
+            api.decode_step(params, state, toks["tokens"][:, t:t + 1], t)
+        cur = torch.full((B,), 8, device=dev)
+        tok1 = toks["tokens"][:, 8:9].contiguous()
+        st_mesh = tree_map(lambda t: t.clone(), state)
+        want, _ = api.decode_step(params, state, tok1, cur)
+        after = tree_leaves(tree_map(lambda t: t.clone(), state))
+        out["decode_plain_ms"] = time_ms(
+            lambda: api.decode_step(params, state, tok1, cur), 10)
+        dspecs = api.decode_state_specs(B, C)
+        with use_mesh(mesh, rules):
+            sd = placed(st_mesh, axes_tree(dspecs))
+            t1 = placed(tok1, ("batch", None))
+            c1 = placed(cur, ("batch",))
+            got, _ = api.decode_step(pm, sd, t1, c1)
+            got = full(got).float()
+            diffs = [float((full(a).float() - b.float()).abs().max())
+                     if a.numel() else 0.0
+                     for a, b in zip(tree_leaves(sd), after)]
+            state_equal = all(bool(torch.equal(full(a), b))
+                              for a, b in zip(tree_leaves(sd), after))
+            out["decode_mesh_ms"] = time_ms(
+                lambda: api.decode_step(pm, sd, t1, c1), 10)
+        out.update(batch=B, context=C, decode_rel_l2=rel(got, want),
+                   decode_bit_equal=bool(torch.equal(got, want.float())),
+                   state_bit_equal=state_equal,
+                   state_max_abs_diff=max(diffs), card=smi,
+                   tol=DIST_LOGITS_REL)
+        if not out["decode_rel_l2"] <= DIST_LOGITS_REL or not state_equal:
+            raise AssertionError(f"{cfg.name} decode on the mesh: rel L2 "
+                                 f"{out['decode_rel_l2']}, state equal "
+                                 f"{state_equal} (max diff {max(diffs)})")
+        del pm, sd, st_mesh, state, after, got, want
+    return out
 
 
 def distributed(dev, counters, trained: dict) -> dict:
@@ -3686,15 +3834,28 @@ def distributed(dev, counters, trained: dict) -> dict:
     phase 13's lattice point), then ``save_checkpoint`` from the mesh and
     ``load_checkpoint`` onto it, bit-equal;
     (c) ``python -m repro_torch.launch.dryrun`` as subprocesses, run in
-    the background from the phase's start: the four dense archs × the
-    four shapes on the 16 × 16 mesh, qwen3-32b's train_4k on 2 × 16 × 16,
-    the six other families' train_4k, train cells at one microbatch;
-    each record priced by ``analyze`` on the H100 data sheet; a dense
-    cell that fails fails the phase;
+    the background from the phase's start: all ten archs × the four
+    shapes on the 16 × 16 mesh, qwen3-32b's train_4k on 2 × 16 × 16,
+    train cells at one microbatch; each record
+    priced by ``analyze`` on the H100 data sheet; a cell that fails, or
+    is skipped where ``configs.supports`` does not say so, fails the
+    phase;
     (d) ``lower_cell`` on a fake 1 × 1 group at (b)'s shape: its
-    ``peak_hbm_bytes`` within 25 % of (b)'s measured peak.
+    ``peak_hbm_bytes`` within 25 % of (b)'s measured peak;
+    (e) hymba-1.5b, mamba2-2.7b and whisper-medium whole, mixtral-8x22b
+    at 2 layers and llama-3.2-vision-90b at one block, bf16 from seed 0
+    on the mesh (:func:`on_mesh`): the forward at phase 12's S, flash
+    under ``local_map`` (32, 0, 24, 2 and 4 launches), and a decode step
+    at phase 12's serve batch over a 1,024 context, against the
+    unsharded ones;
+    (f) llama4-maverick at one block (a dense and a 128-expert MoE
+    layer, ~37 GB of bf16 weights drawn in slices): each layer's
+    attention through flash at (1, 40, 4096, 128) causal against the
+    plain math, the forward's logits against the plain forward's, then
+    :func:`on_mesh` at S = 4096 and B = 2, with its peak memory.
 
-    Returns the launches of each kernel over (a)'s and (b)'s main paths."""
+    Returns the launches of each kernel over the main paths of (a), (b),
+    (e) and (f)."""
 
     import gc
     import os
@@ -3710,6 +3871,7 @@ def distributed(dev, counters, trained: dict) -> dict:
     from repro_torch.launch.mesh import fake_world, make_smoke_mesh
     from repro_torch.models import build_model
     from repro_torch.models.common import axes_tree, tree_leaves, tree_map
+    from repro_torch.models.transformer import _embed
     from repro_torch.optim.adamw import OptState
     from repro_torch.runtime import (TrainConfig, TrainState,
                                      build_train_step, init_train_state)
@@ -3891,6 +4053,66 @@ def distributed(dev, counters, trained: dict) -> dict:
             raise AssertionError(f"training on the mesh: loss rel "
                                  f"{loss_rel}, checkpoint equal {equal}")
         del st, back, bm, batches, api
+        release()
+
+        # (e) the other families on the mesh ---------------------------
+        for name, n_flash in DIST_FAMILY_FLASH.items():
+            fam = FAMILIES[name]
+            cfg = get_config(name).replace(use_flash=True)
+            if "n_layers" in fam:
+                cfg = cfg.replace(n_layers=fam["n_layers"])
+            api = build_model(cfg)
+            g.manual_seed(0)
+            params = api.init(g, device=dev)
+            row = on_mesh(api, params, mesh, counters, total, g, dev,
+                          fwd_s=fam["fwd_s"], batch=fam["serve"]["batch"],
+                          context=fam["serve"]["context"], n_flash=n_flash,
+                          smi=smi)
+            emit("distributed", part="family", reduced={
+                "n_layers": [get_config(name).n_layers, cfg.n_layers]},
+                **row)
+            del params, api
+            release()
+
+        # (f) llama4-maverick at one block -----------------------------
+        mv = MAVERICK_BLOCK
+        cfg = get_config(MAVERICK).replace(use_flash=True,
+                                           n_layers=mv["n_layers"])
+        api = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g.manual_seed(0)
+        params = api.init(g, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+        init_peak = torch.cuda.max_memory_allocated()
+        with torch.no_grad():
+            toks = torch.randint(0, cfg.vocab, (1, mv["fwd_s"]),
+                                 generator=g, device=dev)
+            pos = torch.arange(mv["fwd_s"], device=dev)[None]
+            layers = flash_layers(cfg, params, _embed(params, toks), pos)
+            plain = build_model(cfg.replace(use_flash=False))
+            got = api.forward(params, {"tokens": toks})[0, -1].float()
+            want = plain.forward(params, {"tokens": toks})[0, -1].float()
+            e2e = rel(got, want)
+            del got, want, plain
+        if not max(layers) <= LAYER_ATTN_TOL or not e2e <= FWD_REL_TOL:
+            raise AssertionError(f"{MAVERICK}: flash against plain, layer "
+                                 f"rel {layers}, logits rel {e2e}")
+        release()
+        row = on_mesh(api, params, mesh, counters, total, g, dev,
+                      fwd_s=mv["fwd_s"], batch=mv["batch"],
+                      context=mv["context"], n_flash=mv["n_layers"],
+                      smi=smi)
+        emit("distributed", part="maverick", reduced={
+            "n_layers": [get_config(MAVERICK).n_layers, cfg.n_layers]},
+            params=api.param_count(), weight_bytes=weights, init_s=init_s,
+            init_peak_bytes=init_peak, attn_rel_l2=layers,
+            flash_vs_plain_logits_rel_l2=e2e,
+            flash_tol=[LAYER_ATTN_TOL, FWD_REL_TOL], **row)
+        del params, api
         release()
     finally:
         set_default_cache(prev)

@@ -231,6 +231,25 @@ def logical_constraint(x, *axes: str | None):
     return x.redistribute(x.device_mesh, want)
 
 
+def pinned(x, axes: tuple, shape: tuple | None = None):
+    """:func:`logical_constraint` of ``x`` to the placements of ``axes``
+    resolved over ``shape`` (``x``'s by default), always through
+    DTensor's ``Redistribute``, even to the placements ``x`` has: its
+    backward then brings the gradient to them too, before the backward
+    of the view or split that made ``x`` meets a layout it cannot take.
+    ``x`` itself without a mesh context or when it is not a DTensor."""
+
+    ctx = _CTX.get()
+    if ctx is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    want = ctx.placements(tuple(axes), tuple(x.shape if shape is None
+                                             else shape))
+    return x.redistribute(x.device_mesh, want)
+
+
 def gather_fsdp(w):
     """A weight in its compute placements: the mesh dims of the "batch"
     rule (where ``embed -> batch`` put the FSDP shards) gathered, every
@@ -252,6 +271,22 @@ def gather_fsdp(w):
     if pl == tuple(w.placements):
         return w
     return w.redistribute(w.device_mesh, pl)
+
+
+def grad_partials(in_placements, out_placements) -> tuple:
+    """``local_map``'s ``in_grad_placements`` for a region that is exact
+    on each rank's slice: each input's placements, with ``Partial()`` on
+    every mesh dim that it is read whole on (``Replicate``) while the
+    output is split there.  Each rank's gradient of such an input is the
+    part from its own slice of the output; without this local_map takes
+    it for the whole gradient (the SSD scan's A, B and C, the depthwise
+    conv's kernel).  ``None`` entries (not tensors) stay ``None``."""
+
+    from torch.distributed.tensor import Partial, Shard
+    split = {m for m, p in enumerate(out_placements) if isinstance(p, Shard)}
+    return tuple(None if pl is None else tuple(
+        Partial() if m in split and p.is_replicate() else p
+        for m, p in enumerate(pl)) for pl in in_placements)
 
 
 def shard_offset(x, dim: int) -> int:
@@ -390,4 +425,5 @@ __all__ = ["Rules", "default_rules", "use_mesh", "current_ctx",
            "logical_constraint", "named_sharding", "tree_shardings",
            "MeshCtx", "FALLBACK_NAMES", "arg_sharding", "shard_like",
            "NamedSharding", "AbstractMesh", "spec_placements", "mesh_sizes",
-           "place", "gather_fsdp", "shard_offset"]
+           "place", "gather_fsdp", "shard_offset", "grad_partials",
+           "pinned"]

@@ -13,6 +13,7 @@ the two packages leaf for leaf.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -22,6 +23,13 @@ import torch.nn.functional as F
 from ..kernels.common import resolve_device
 
 DEFAULT_DTYPE = torch.bfloat16
+# a "normal" leaf of more elements than LARGE_LEAF is drawn LEAF_SLICE
+# elements at a time into its dtype, never as one f32 tensor of its size
+# (llama4-maverick's (1, 128, 5120, 8192) expert leaves: 21.5 GB in f32);
+# every leaf of the configs the card runs whole or cut is smaller, and is
+# drawn as one tensor as before
+LARGE_LEAF = 2 ** 31
+LEAF_SLICE = 2 ** 28
 
 
 @dataclass(frozen=True)
@@ -75,9 +83,17 @@ def init_params(tree, generator: torch.Generator, device=None):
     ``shape[-1] ** -0.5`` — the LAST dim, not the true fan-in (``wq``
     (d, H, hd) gets ``hd ** -0.5``, ``unembed`` (d, V) gets
     ``V ** -0.5``), so activations and logits keep the reference's
-    scale.  Each leaf is drawn in f32, scaled, then cast to its dtype."""
+    scale.  Each leaf is drawn in f32, scaled, then cast to its dtype; a
+    leaf of more than ``LARGE_LEAF`` elements is drawn so in rows of its
+    flattened leading dims, at most ``LEAF_SLICE`` elements at a time
+    (the same distribution and scale, other values than one draw)."""
 
     dev = resolve_device(device)
+
+    def draw(shape, scale, dtype):
+        x = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return x.mul_(scale).to(dtype)
 
     def make(spec: PSpec):
         if spec.init == "zeros":
@@ -86,9 +102,15 @@ def init_params(tree, generator: torch.Generator, device=None):
             return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
         fan_in = spec.shape[-1] if len(spec.shape) >= 1 else 1
         scale = spec.scale if spec.scale is not None else fan_in ** -0.5
-        x = torch.randn(spec.shape, generator=generator, device=dev,
-                        dtype=torch.float32)
-        return x.mul_(scale).to(spec.dtype)
+        if math.prod(spec.shape) <= LARGE_LEAF:
+            return draw(spec.shape, scale, spec.dtype)
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=dev)
+        rows = out.view(-1, fan_in)
+        step = max(1, LEAF_SLICE // fan_in)
+        for i in range(0, rows.shape[0], step):
+            part = rows[i:i + step]
+            part.copy_(draw(tuple(part.shape), scale, spec.dtype))
+        return out
 
     return tree_map(make, tree)
 

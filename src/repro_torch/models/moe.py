@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..distribute.sharding import current_ctx
 from ..distribute.sharding import logical_constraint as lc
+from ..distribute.sharding import pinned
 from .common import PSpec
 
 
@@ -55,8 +56,28 @@ def _route(cfg: ArchConfig, p: dict, x2: torch.Tensor):
     # whole over the experts: DTensor's top-k over a sharded dim is not
     # the global one
     logits = lc(x2.float() @ p["router"].float(), "batch", None)
-    top, idx = torch.topk(logits, cfg.moe.top_k, dim=-1)
+    top, idx = _topk(logits, cfg.moe.top_k)
     return torch.softmax(top, dim=-1), idx   # renormalized over the top-k
+
+
+def _topk(logits: torch.Tensor, k: int):
+    """``torch.topk`` over the experts of (T, E) router logits; on
+    DTensors, on each rank's rows.
+
+    local_map region: logits and both outputs with T over the batch
+    rule's mesh dims and E (or k) whole.  DTensor's sharding cache does
+    not key ``topk`` on ``k``: a second MoE config of another top-k in
+    the same process would get the first one's output shape."""
+
+    ctx = current_ctx()
+    if ctx is None or not _is_dtensor(logits):
+        return torch.topk(logits, k, dim=-1)
+    from torch.distributed.tensor.experimental import local_map
+    pl = ctx.placements(("batch", None), tuple(logits.shape))
+    return local_map(lambda t: tuple(torch.topk(t, k, dim=-1)),
+                     out_placements=(pl, pl), in_placements=(pl,),
+                     device_mesh=logits.device_mesh,
+                     redistribute_inputs=True)(logits)
 
 
 def _dispatch(cfg: ArchConfig, p: dict, x: torch.Tensor):
@@ -103,8 +124,10 @@ def moe_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     # all-to-all
     xd = _scatter_rows(slot, x_rep, E * C + 1)
     xd = lc(xd, "batch", None, "embed")
-    xd = xd[:, :E * C].reshape(B, E, C, d)
-    xd = lc(xd, "batch", "experts", None, "embed")
+    # pinned: the experts' backward may split C, and the merge of (E, C)
+    # would hand the slice's backward a strided shard
+    xd = pinned(xd[:, :E * C].reshape(B, E, C, d), ("batch", "experts",
+                                                     None, "embed"))
     yo = _experts(p, xd)
 
     flat = yo.reshape(B, E * C, d)

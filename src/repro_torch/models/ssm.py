@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..distribute.sharding import current_ctx
+from ..distribute.sharding import current_ctx, grad_partials, pinned
 from ..distribute.sharding import logical_constraint as lc
 from .common import DEFAULT_DTYPE, PSpec
 
@@ -86,6 +86,7 @@ def _depthwise(hist: torch.Tensor, w: torch.Tensor,
     ph = ctx.placements(("batch", None, None), tuple(hist.shape))
     pw = (Replicate(),) * len(ph)
     return local_map(conv, out_placements=list(ph), in_placements=(ph, pw),
+                     in_grad_placements=grad_partials((ph, pw), ph),
                      device_mesh=hist.device_mesh,
                      redistribute_inputs=True)(hist, w)
 
@@ -185,8 +186,9 @@ def _ssd_on_shards(x, dt, A, Bm, Cm, chunk: int, cd) -> torch.Tensor:
     def run(x, dt, A, Bm, Cm):
         return ssd_chunked(x, dt, A, Bm, Cm, chunk, compute_dtype=cd)
 
-    return local_map(run, out_placements=list(px),
-                     in_placements=(px, pd, pa, pb, pb),
+    pin = (px, pd, pa, pb, pb)
+    return local_map(run, out_placements=list(px), in_placements=pin,
+                     in_grad_placements=grad_partials(pin, px),
                      device_mesh=x.device_mesh,
                      redistribute_inputs=True)(x, dt, A, Bm, Cm)
 
@@ -196,28 +198,57 @@ def _is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def _on_heads(t: torch.Tensor, nh: int) -> torch.Tensor:
+    """``t`` (B, S, nh · P), the channels of ``nh`` heads, placed as its
+    (B, S, nh) head view ("batch", "seq", "heads"): where the model axis
+    does not divide ``nh`` (hymba: 50 heads on a 16-way axis) the
+    channels are whole on it, so that neither the head split nor the
+    merge, nor their backwards, meets an uneven shard."""
+
+    return pinned(t, ("batch", "seq", "heads"), (*t.shape[:-1], nh))
+
+
+def _heads_left_whole(nh: int) -> bool:
+    """Whether the active mesh leaves ``nh`` heads whole on an axis the
+    rules shard "heads" over (their count does not divide it)."""
+
+    ctx = current_ctx()
+    if ctx is None:
+        return False
+    from ..distribute.sharding import spec_placements
+    return ctx.placements(("heads",), (nh,)) != spec_placements(
+        ctx.rules.spec(("heads",)), ctx.mesh)
+
+
 def ssm_forward(p: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence SSD block. x: (B,S,d) -> (B,S,d)."""
 
     di, nh, P, N, W = _dims(cfg)
-    z, xin, Bm, Cm, dt = _split_in(cfg, x @ p["w_in"])
+    proj = x @ p["w_in"]
+    if _heads_left_whole(nh):
+        # whole channels before the split: its backward concatenates the
+        # pieces' gradients, which DTensor otherwise shards over the
+        # sequence, and the weight's gradient cannot take that layout
+        proj = pinned(proj, ("batch", "seq", None))
+    z, xin, Bm, Cm, dt = _split_in(cfg, proj)
     conv_out = _causal_conv(torch.cat([xin, Bm, Cm], dim=-1), p["conv_w"],
                             p["conv_b"])
     xin, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
 
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["a_log"].float())
-    xh = xin.reshape(*xin.shape[:2], nh, P)
     # SSD heads over the model axis: the (B, nc, Q, Q, H) decay tensor is
     # the memory hot-spot and follows these constraints
-    xh = lc(xh, "batch", "seq", "heads", None)
+    xin = _on_heads(xin, nh)
+    xh = lc(xin.reshape(*xin.shape[:2], nh, P), "batch", "seq", "heads",
+            None)
     dt = lc(dt, "batch", "seq", "heads")
     cd = getattr(torch, cfg.ssd_dtype)
     y = _ssd_on_shards(xh.to(cd), dt, A, Bm.to(cd), Cm.to(cd),
                        cfg.ssm.chunk, cd)
     y = lc(y, "batch", "seq", "heads", None)
     y = y + p["D"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(*xin.shape[:2], di).to(x.dtype)
+    y = _on_heads(y.reshape(*xin.shape[:2], di), nh).to(x.dtype)
     y = y * F.silu(z)
     return lc(y @ p["w_out"], "batch", "seq", "embed")
 
@@ -265,7 +296,8 @@ def _recurrent(p: dict, cfg: ArchConfig, x: torch.Tensor, state: dict,
 
     dt = F.softplus(dt.float() + p["dt_bias"].float())      # (B, T, H)
     A = -torch.exp(p["a_log"].float())
-    xh = xin.reshape(B, T, nh, P).float()
+    dt = lc(dt, "batch", "seq", "heads")
+    xh = _on_heads(xin, nh).reshape(B, T, nh, P).float()
     decay = torch.exp(dt * A)                               # (B, T, H)
     u = dt[..., None] * xh                                  # (B, T, H, P)
     Bf, Cf = Bm.float(), Cm.float()
@@ -279,7 +311,7 @@ def _recurrent(p: dict, cfg: ArchConfig, x: torch.Tensor, state: dict,
         ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], h_new))
     y = torch.stack(ys, dim=1)                              # (B, T, H, P)
     y = y + p["D"].float()[None, None, :, None] * xh
-    y = y.reshape(B, T, di).to(x.dtype) * F.silu(z)
+    y = _on_heads(y.reshape(B, T, di), nh).to(x.dtype) * F.silu(z)
     if write:
         # the ring after a slot's valid tokens: the W-1 history rows that
         # end at its last valid token (all T when ungated)

@@ -1,6 +1,7 @@
 """Multi-rank scenarios of the port on CPU gloo ranks, for
-``tests/test_torch_distributed.py``, ``test_torch_pipeline.py`` and
-``test_torch_checkpoint.py``.  Imports torch and ``repro_torch`` only.
+``tests/test_torch_distributed.py``, ``test_torch_dist_families.py``,
+``test_torch_pipeline.py`` and ``test_torch_checkpoint.py``.  Imports
+torch and ``repro_torch`` only.
 
   python tests/_torch_dist_workers.py SCENARIO OUT_DIR [ARGS...]
 
@@ -181,6 +182,205 @@ def sharded(rank: int, out: str) -> dict:
     return res
 
 
+FAMILY_ARCHS = ("mamba2-2.7b", "mixtral-8x22b", "llama4-maverick-400b-a17b",
+                "llama-3.2-vision-90b", "hymba-1.5b", "whisper-medium")
+# the families' sizes: (B, S) of the forward and the train step, the
+# decode context and per-slot positions, S of the forward through flash
+FAM_B, FAM_S, FAM_CTX, FAM_FLASH_S = 4, 16, 32, 128
+FAM_CUR = (3, 0, 7, 5)
+
+
+def family_cfg(arch: str, variant: str = ""):
+    """The reduced f32-logits config of a family; ``variant`` "nodrop"
+    sets the MoE capacity factor to 16 (no pair is dropped), "heads6" /
+    "heads5" cut hymba's SSM to 6 or 5 heads (d_model 48 / 40, headdim
+    16), which a 4- or 2-way model axis does not divide."""
+
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced().replace(logits_dtype="float32")
+    if variant == "nodrop":
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=16.0))
+    elif variant in ("heads6", "heads5"):
+        cfg = cfg.replace(d_model=48 if variant == "heads6" else 40,
+                          ssm=dataclasses.replace(cfg.ssm, headdim=16))
+    return cfg
+
+
+def family_params(api):
+    """f32 params from seed 0; the vlm's cross gates at 0.5 (they start
+    at 0, which would hide the cross layers)."""
+
+    p = _f32(api.init(0, device="cpu"))
+    for k, blk in p["blocks"].items():
+        if k.endswith("_cross"):
+            blk["gate"].fill_(0.5)
+    return p
+
+
+def family_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """tokens and labels, plus frames (enc-dec) or image embeddings
+    (vlm), from a numpy seed."""
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    out = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    if cfg.is_encdec:
+        out["frames"] = (rng.standard_normal((B, cfg.enc_seq, cfg.d_model))
+                         * 0.3).astype(np.float32)
+    if cfg.family == "vlm":
+        out["img_embeds"] = (rng.standard_normal(
+            (B, cfg.n_img_tokens, cfg.d_model)) * 0.3).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def _max_err(got, want) -> float:
+    """Max abs difference over the leaves of two trees (DTensors taken
+    whole)."""
+
+    g, w = _tree_np(got), _tree_np(want)
+    assert g.keys() == w.keys(), (sorted(g), sorted(w))
+    return max(float(np.max(np.abs(g[k] - w[k]))) if g[k].size else 0.0
+               for k in w)
+
+
+def _family_case(cfg, mesh, *, train: bool, flash: bool, dump: str | None):
+    """One config on ``mesh`` against its unsharded self: forward, flash
+    forward, ``decode_step`` with per-slot positions over a non-zero
+    state (whisper's cross K/V from ``encode_cross_kv``), one train
+    step.  Returns the errors; ``dump`` names an .npz for the params,
+    the inputs and the sharded logits."""
+
+    from repro_torch.distribute.sharding import place, shard_like, use_mesh
+    from repro_torch.launch.cells import batch_axes, rules_for_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import axes_tree, tree_map
+    from repro_torch.runtime import (TrainConfig, build_train_step,
+                                     init_train_state)
+    from repro_torch.runtime.train import value_and_grad
+
+    api = build_model(cfg)
+    rules = rules_for_arch(cfg)
+    params = family_params(api)
+    batch = family_batch(cfg, FAM_B, FAM_S, seed=1)
+    fwd_in = {k: v for k, v in batch.items() if k != "labels"}
+    axes = batch_axes(cfg, None)
+    res: dict = {}
+
+    def placed(tree, ax):
+        return place(tree, shard_like(tree, ax, mesh, rules))
+
+    with torch.no_grad():
+        want = api.forward(params, fwd_in)
+        with use_mesh(mesh, rules):
+            pm = placed(params, api.axes())
+            got = api.forward(pm, placed(fwd_in, {k: axes[k] for k in
+                                                  fwd_in})).full_tensor()
+        res["forward_err"] = float((got - want).abs().max())
+        res["forward_scale"] = float(want.abs().max())
+        if dump:
+            np.savez(dump, **{f"params/{k}": v for k, v in
+                              _tree_np(params).items()},
+                     **{f"in/{k}": v.numpy() for k, v in fwd_in.items()},
+                     logits=got.numpy())
+
+        if flash:
+            # S tiles by 128: attention through the flash kernel's
+            # region (its plain version on these CPU shards), windowed
+            # where the config has a window
+            fapi = build_model(cfg.replace(use_flash=True))
+            fin = {k: v for k, v in family_batch(
+                cfg, FAM_B, FAM_FLASH_S, seed=4).items() if k != "labels"}
+            fwant = fapi.forward(params, fin)
+            with use_mesh(mesh, rules):
+                fgot = fapi.forward(pm, placed(fin, {k: axes[k] for k in
+                                                     fin})).full_tensor()
+            res["flash_err"] = float((fgot - fwant).abs().max())
+
+        # decode over a non-zero state at per-slot positions
+        B = FAM_B
+        rng = np.random.default_rng(3)
+        st = tree_map(lambda t: torch.from_numpy(
+            rng.standard_normal(tuple(t.shape)) * 0.5).to(t.dtype),
+            api.init_decode_state(B, FAM_CTX, dtype=torch.float32,
+                                  device="cpu"))
+        if cfg.is_encdec:
+            frames = batch["frames"]
+            xkv = api.encode_cross_kv(params, frames)
+            with use_mesh(mesh, rules):
+                xkv_m = api.encode_cross_kv(pm, placed(
+                    frames, ("batch", None, None)))
+            res["cross_kv_err"] = _max_err(xkv_m, xkv)
+            for n in ("k", "v"):
+                st["xattn"][n].copy_(xkv[n])
+        st_m = tree_map(lambda t: t.clone(), st)
+        tok1 = batch["tokens"][:, :1]
+        cur = torch.tensor(FAM_CUR)
+        want, _ = api.decode_step(params, st, tok1, cur)
+        dspecs = api.decode_state_specs(B, FAM_CTX, dtype=torch.float32)
+        with use_mesh(mesh, rules):
+            sd = placed(st_m, axes_tree(dspecs))
+            got, sd = api.decode_step(pm, sd, placed(tok1, ("batch", None)),
+                                      placed(cur, ("batch",)))
+            got = got.full_tensor()
+        res["decode_err"] = float((got - want).abs().max())
+        res["decode_scale"] = float(want.abs().max())
+        res["decode_state_err"] = _max_err(sd, st)
+
+    if train:
+        tcfg = TrainConfig(lr=3e-3, warmup=2, total_steps=20)
+        state0 = init_train_state(api, 0, tcfg, device="cpu")
+        state0 = state0._replace(params=tree_map(lambda t: t.clone(),
+                                                 params))
+        step = build_train_step(api, tcfg)
+        _, grads = value_and_grad(api, params, batch)
+        plain, m = step(state0, batch)
+        with use_mesh(mesh, rules):
+            bm = placed(batch, {k: axes[k] for k in batch})
+            _, grads_m = value_and_grad(api, pm, bm)
+            st = _place_state(state0, api, None, mesh, rules)
+            new, mm = step(st, bm)
+        res["grad_err"] = _max_err(grads_m, grads)
+        res["loss"], res["loss_plain"] = float(mm["loss"]), float(m["loss"])
+        res["step_err"] = _max_err(new.params, plain.params)
+    return res
+
+
+def families(rank: int, out: str) -> dict:
+    """The six non-dense families' sharded forward, flash forward,
+    decode_step and train step on a (2, 2) mesh against the unsharded
+    ones (the MoE families also with no drops), and hymba cut to SSM head
+    counts the model axis does not divide: 6 heads on (1, 4), 5 on
+    (2, 2)."""
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.tune import TuningCache, set_default_cache
+
+    set_default_cache(TuningCache(os.path.join(out, f"cache{rank}.json")))
+    mesh = make_smoke_mesh((2, 2))
+    res: dict = {}
+    for arch in FAMILY_ARCHS:
+        cfg = family_cfg(arch)
+        dump = os.path.join(out, f"{arch}.npz") if rank == 0 else None
+        res[arch] = _family_case(cfg, mesh, train=True,
+                                 flash=cfg.family != "ssm", dump=dump)
+        if cfg.moe is not None:
+            dump = os.path.join(out, f"{arch}-nodrop.npz") if rank == 0 \
+                else None
+            res[f"{arch}/nodrop"] = _family_case(
+                family_cfg(arch, "nodrop"), mesh, train=False, flash=False,
+                dump=dump)
+    res["hymba-1.5b/heads5"] = _family_case(
+        family_cfg("hymba-1.5b", "heads5"), mesh, train=True, flash=False,
+        dump=None)
+    res["hymba-1.5b/heads6"] = _family_case(
+        family_cfg("hymba-1.5b", "heads6"), make_smoke_mesh((1, 4)),
+        train=True, flash=False, dump=None)
+    return res
+
+
 def pipeline(rank: int, out: str) -> dict:
     """The reference's GPipe case over 4 ranks: P = 4, M = 8, B = 16,
     D = 32, ``tanh(a @ W)`` stages."""
@@ -242,7 +442,8 @@ def ckpt(rank: int, out: str, ref_dir: str) -> dict:
     return res
 
 
-SCENARIOS = {"sharded": sharded, "pipeline": pipeline, "ckpt": ckpt}
+SCENARIOS = {"sharded": sharded, "families": families,
+             "pipeline": pipeline, "ckpt": ckpt}
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir,
                    "src")
 

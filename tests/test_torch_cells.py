@@ -273,3 +273,67 @@ def test_dry_run_helpers_match_the_reference(arch):
     assert api.axes() == japi.axes()
     assert all(t.device.type == "meta" for t in
                torch.utils._pytree.tree_leaves(api.abstract()))
+
+
+HYMBA = r"""
+import dataclasses, json, sys
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch.cells import lower_cell
+from repro_torch.launch.mesh import fake_world, make_smoke_mesh
+from repro_torch.runtime import TrainConfig
+
+one = TrainConfig(microbatches=1)
+out = {}
+# hymba cut to 6 SSM heads (d_model 48, headdim 16) on a (2, 4) group:
+# the heads do not divide the 4-way model axis
+base = get_config("hymba-1.5b").reduced()
+cut = {f.name: getattr(base, f.name) for f in dataclasses.fields(base)
+       if f.name not in ("name", "source")}
+cut.update(d_model=48, ssm=dataclasses.replace(base.ssm, headdim=16))
+for kind in ("train", "prefill", "decode"):
+    SHAPES["tiny_" + kind] = ShapeSpec("tiny_" + kind, 16, 4, kind)
+with fake_world(8):
+    mesh = make_smoke_mesh((2, 4))
+    for kind in ("train", "prefill", "decode"):
+        out["heads6_" + kind] = lower_cell(
+            "hymba-1.5b", "tiny_" + kind, mesh=mesh, cfg_overrides=cut,
+            tcfg=one).to_json()
+# full width on the fake 16 x 16 group: 50 SSM heads on a 16-way axis
+out["decode_32k"] = lower_cell("hymba-1.5b", "decode_32k").to_json()
+out["train_4k"] = lower_cell("hymba-1.5b", "train_4k", tcfg=one,
+                             cfg_overrides={"n_layers": 2}).to_json()
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+
+@pytest.fixture(scope="module")
+def hymba_cells(tmp_path_factory):
+    path = tmp_path_factory.mktemp("hymba") / "cells.json"
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", HYMBA, str(path)], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(path.read_text())
+
+
+@pytest.mark.parametrize("cell", ["decode_32k", "train_4k"])
+def test_hymba_full_width_cells_on_a_fake_16x16_group(hymba_cells, cell):
+    """50 SSM heads on a 16-way model axis: the head split and merge
+    leave the channels whole on it (train_4k at 2 of 32 layers)."""
+
+    rec = hymba_cells[cell]
+    assert rec["status"] == "ok", rec["reason"]
+    assert rec["n_devices"] == 256 and rec["mesh"] == "16x16"
+    assert rec["cost"]["flops"] > 0
+    assert rec["collectives"]["total_bytes"] > 0
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_uneven_ssm_heads_on_a_fake_2x4_group(hymba_cells, kind):
+    """hymba cut to 6 SSM heads, which a 4-way model axis does not
+    divide, with the batch split 2 ways."""
+
+    rec = hymba_cells["heads6_" + kind]
+    assert rec["status"] == "ok", rec["reason"]
+    assert rec["n_devices"] == 8 and rec["cost"]["flops"] > 0
