@@ -5,9 +5,10 @@ width), the model checker, the serving tunables, the card's calibration
 with the Server observed on it, the fleet rollout and verification
 CLIs, the other model families (hymba, mamba2, whisper, mixtral and
 llama-3.2-vision at full width, the last two cut in depth), training
-(smollm-135m at full width), and the sharded paths of every family on
-a 1x1 mesh (llama4-maverick at one block) with the dry run of the
-production meshes on the card's host.
+(smollm-135m at full width), the sharded paths of every family on a
+1x1 mesh (llama4-maverick at one block) with the dry run of the
+production meshes on the card's host, and the examples' torch twins
+(qwen3-32b served whole).
 
     python3 chip_smoke.py
 
@@ -181,7 +182,25 @@ Each phase prints one JSON line:
    4096, 128) causal against the plain math layer by layer, then (e)'s
    checks at S = 4096 and B = 2, with its peak memory; then each
    kernel's launches over (a), (b), (e) and (f), and the phase's
-   seconds.
+   seconds;
+15. ``examples`` — the six torch twins of ``examples/*.py``
+   (``examples/torch_*.py``) after phase 14 released its weights, each
+   on a temporary tuning cache and platform spec (the fleet's is phase
+   10's fitted artifact, so its ``[calibrate]`` loads): (a) each twin's
+   ``main`` in-process at the reference example's arguments, checked as
+   the CPU tests check it (t_min 24 and 131,224 and the picks, the
+   reduction's pick the cost model's argmin and its result its plain
+   version's, the fleet's 12 jobs, 12 shipped, the node's matmul with
+   no miss and 12 hits, 10 requests / 60 tokens in 18 ticks contiguous
+   and paged, 220 steps with one restart, the distributed picks
+   ``tune_distributed``'s); (b) ``python
+   examples/torch_autotune_minimum.py`` as a subprocess, loading no
+   ``jax`` or ``repro`` module; (c) the serving twin with ``--preset
+   full``, qwen3-32b whole contiguous then paged (the memory allocated
+   before each driver run, its peak, ticks and tokens/s), and the
+   training twin with ``--preset full`` (smollm-135m at full width, 220
+   steps, the loss's first and last); then the reduction's and the
+   matmul's launches over (a) and (c).
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -435,6 +454,12 @@ MAVERICK_BLOCK = dict(n_layers=2, fwd_s=FWD_S, batch=2, context=1024)
 # archs) repeats the same layers' work, and the fake run pays host
 # dispatch for every op (qwen3-32b's auto 16 took 593 s on a CPU)
 DIST_MICROBATCHES = 1
+# phase 15: the examples' torch twins, at the reference examples'
+# arguments, then the two driver twins with ``--preset full``
+EXAMPLES = ROOT / "examples"
+EXAMPLE_TWINS = ("quickstart", "autotune_minimum", "fleet_rollout",
+                 "serve_batch", "train_smollm", "tune_distributed")
+FULL = ["--preset", "full"]
 
 
 # runs ``python -m <argv[1]> <argv[2:]>`` and, at exit, writes the
@@ -4148,6 +4173,300 @@ def distributed(dev, counters, trained: dict) -> dict:
     return {"launches": total, "cells": cells["rows"]}
 
 
+def _load_example(name: str):
+    """``examples/torch_<name>.py`` as a module (importing runs nothing)."""
+
+    import importlib.util
+    path = EXAMPLES / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _one_line(out: str, pattern: str) -> "re.Match":
+    import re
+    found = re.findall(pattern, out, re.M)
+    if len(found) != 1:
+        raise AssertionError(f"want one line matching {pattern!r}: "
+                             f"{len(found)} in\n{out[-3000:]}")
+    return re.search(pattern, out, re.M)
+
+
+def examples(dev, counters, fitted) -> dict:
+    """Phase 15: the six torch twins of ``examples/*.py``, each with a
+    tuning cache and a platform spec of its own in a temporary directory
+    (the fleet's spec is phase 10's fitted artifact, so its
+    ``[calibrate]`` loads).  (a) each twin's ``main`` in-process at the
+    reference example's arguments, its output checked as the CPU tests
+    check it: the model checker's counts and picks, the abstract
+    platform's pick and the swarm check, the reduction's pick against
+    its cost model and its result against its plain version, the
+    fleet's 12 jobs, 12 shipped, the node's matmul from its cache and 12
+    hits, the serving driver's 10 requests / 60 tokens in 18 ticks
+    contiguous and paged, the training driver's 220 steps with one
+    restart, the distributed picks against ``tune_distributed``; (b)
+    ``python examples/torch_autotune_minimum.py`` as a subprocess, as a
+    user runs it, loading no ``jax`` and no ``repro`` module (``-X
+    importtime``); (c) the serving twin with ``--preset full``
+    (qwen3-32b whole, contiguous then paged: the memory allocated before
+    each driver run, its peak, ticks and tokens/s) and the training twin
+    with ``--preset full`` (smollm-135m at full width).  The launches
+    returned are (a)'s and (c)'s."""
+
+    import contextlib
+    import dataclasses
+    import gc
+    import io
+    import os
+    import re
+
+    import torch
+    from repro_torch.calibrate import DEFAULT_SPEC, set_platform_spec
+    from repro_torch.core.tpu_machine import (tune_distributed,
+                                              workload_from_arch)
+    from repro_torch.kernels.tuned_reduction.ops import (cost_model,
+                                                         tuning_space)
+    from repro_torch.tune import set_default_cache
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    total = [0] * len(counters)
+    ri, mi = 0, 2                      # the reduction's and matmul's rows
+    prev_env = {k: os.environ.get(k) for k in ("REPRO_TORCH_PLATFORM_SPEC",
+                                                "REPRO_TORCH_TUNE_CACHE")}
+
+    def run(twin, argv, tmp, tag, wrap=None):
+        """``main(argv)`` of a twin on its own cache and spec, its output
+        captured; returns (output, seconds, launches, main's value)."""
+
+        os.environ["REPRO_TORCH_TUNE_CACHE"] = str(tmp / f"{tag}.json")
+        os.environ["REPRO_TORCH_PLATFORM_SPEC"] = str(tmp / f"{tag}.spec.json")
+        if twin == "fleet_rollout":
+            fitted.save(tmp / f"{tag}.spec.json")
+        prev_cache = set_default_cache(None)
+        prev_spec = set_platform_spec(None)
+        module = _load_example(twin)
+        if wrap is not None:
+            wrap(module)
+        for c in counters:
+            c.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                value = module.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            set_default_cache(prev_cache)
+            set_platform_spec(prev_spec)
+        seconds = time.perf_counter() - t0
+        launches = [c.launches for c in counters]
+        for i, n in enumerate(launches):
+            total[i] += n
+        return buf.getvalue(), seconds, launches, value
+
+    def line(part, twin, argv, out, seconds, launches, **extra):
+        emit("examples", part=part, twin=f"examples/torch_{twin}.py",
+             argv=argv, seconds=seconds,
+             launches=dict(zip(("tuned_reduction", "sweep_eval",
+                                "matmul_tuned", "flash_attention"),
+                               launches)),
+             output=out.splitlines()[-24:], card=smi, **extra)
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            # (a) each twin at the reference example's arguments --------
+            outs = {}
+            for twin in EXAMPLE_TWINS:
+                out, seconds, launches, value = run(twin, [], tmp, twin)
+                outs[twin] = (out, value)
+                line("a", twin, [], out, seconds, launches)
+
+            out = outs["quickstart"][0]
+            for want in ("terminates at time 69 (explored 98 states)",
+                         "engine=explorer  T_min=  24 config={'WG': 16, "
+                         "'TS': 4}",
+                         "engine=swarm     T_min=  24 config={'WG': 16, "
+                         "'TS': 4}",
+                         "engine=sweep     T_min=  24 config={'WG': 4, "
+                         "'TS': 4}",
+                         "(trail of 131 transitions replays OK)",
+                         "(hit, stats={'hits': 1, 'misses': 1, "
+                         "'entries': 1})"):
+                if want not in out:
+                    raise AssertionError(f"quickstart: no {want!r}\n{out}")
+
+            out = outs["autotune_minimum"][0]
+            _one_line(out, r"^abstract platform: optimal WG=128 TS=8192 "
+                           r"model_time=131224 ")
+            _one_line(out, r"^swarm sanity \(size=64\): swarm t=276 vs "
+                           r"exhaustive t=276$")
+            m = _one_line(out, r"^reduction kernel: WG=(\d+) TS=(\d+) ")
+            pick = {"WG": int(m.group(1)), "TS": int(m.group(2))}
+            n = 1 << 20
+            if cost_model(pick, n=n) != min(cost_model(c, n=n)
+                                            for c in tuning_space(n)):
+                raise AssertionError(f"reduction pick {pick} is not the "
+                                     f"cost model's argmin")
+            _one_line(out, rf"^tuned kernel result (-?\d+) == plain \1  ✓ "
+                           rf"\(WG={pick['WG']} TS={pick['TS']} from "
+                           rf"cache\)$")
+
+            out = outs["fleet_rollout"][0]
+            if not out.startswith(f"[calibrate] loaded cuda/{name} ") or \
+                    sorted(map(int, re.findall(r"\[(\d+)/12\] ", out))) != \
+                    list(range(1, 13)):
+                raise AssertionError(f"fleet warm-up:\n{out}")
+            for pat in (r"12 jobs — 0 hits, 12 tuned, 0 forced, 0 failed$",
+                        r"^shipped 12 entries; node merged 12 added / 0 "
+                        r"kept ",
+                        r"from cache with 0 engine runs "
+                        r"\(result\[0,0\]=128\.0\)$",
+                        r"^re-warmup on node: .* 12 jobs — 12 hits, 0 "
+                        r"tuned, 0 forced, 0 failed$"):
+                _one_line(out, pat)
+
+            out = outs["serve_batch"][0]
+            served = re.findall(r"^served 10 requests / 60 tokens in 18 "
+                                r"engine ticks, ", out, re.M)
+            if len(served) != 2:
+                raise AssertionError(f"serve_batch:\n{out}")
+            _one_line(out, r"^  paged kv: page=8 pool=32 pages peak_used=8 "
+                           r"peak_active=4 deferrals=0$")
+
+            out = outs["train_smollm"][0]
+            _one_line(out, r"^\[tune\] config: microbatches=\d+ remat=\w+ ")
+            _one_line(out, r"^\[inject\] simulated pod failure at step 120$")
+            _one_line(out, r"^steps=220 wall=[\d.]+s mean_step=[\d.]+ms "
+                           r"restarts=1 ")
+
+            # the twin priced the data sheet (its spec path holds no
+            # calibration)
+            cells = outs["tune_distributed"][1]
+            prev_spec = set_platform_spec(DEFAULT_SPEC)
+            try:
+                for cell in cells:
+                    best, _, _ = tune_distributed(
+                        workload_from_arch(cell["arch"], "train_4k"),
+                        chips_per_pod=256, pods=cell["pods"])
+                    if cell["config"] != best:
+                        raise AssertionError(
+                            f"tune_distributed {cell['arch']}: "
+                            f"{cell['config']} against {best}")
+            finally:
+                set_platform_spec(prev_spec)
+            emit("examples", part="a_checks", twins=len(EXAMPLE_TWINS),
+                 reduction_pick=pick,
+                 distributed={c["arch"]: dataclasses.asdict(c["config"])
+                              for c in cells})
+            if total[ri] <= 0 or total[mi] <= 0:
+                raise AssertionError(f"(a) launched the reduction "
+                                     f"{total[ri]} and the matmul "
+                                     f"{total[mi]} times")
+
+            # (b) one twin as a user runs it ----------------------------
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                       REPRO_TORCH_TUNE_CACHE=str(tmp / "user.json"),
+                       REPRO_TORCH_PLATFORM_SPEC=str(tmp / "user.spec.json"))
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-X", "importtime",
+                 "examples/torch_autotune_minimum.py"],
+                capture_output=True, text=True, cwd=ROOT, env=env,
+                timeout=600)
+            imported = [ln.rsplit("|", 1)[-1].strip()
+                        for ln in proc.stderr.splitlines()
+                        if ln.startswith("import time:")]
+            bad = [m for m in imported
+                   if m.split(".")[0] in ("jax", "ml_dtypes", "repro")]
+            emit("examples", part="b", rc=proc.returncode,
+                 seconds=time.perf_counter() - t0,
+                 argv=["python", "examples/torch_autotune_minimum.py"],
+                 modules_imported=len(imported), jax_or_repro=bad,
+                 output=proc.stdout.splitlines()[-8:], card=smi)
+            if proc.returncode != 0 or bad or not imported or \
+                    "from cache)" not in proc.stdout:
+                raise AssertionError(f"the twin as a subprocess: rc "
+                                     f"{proc.returncode}, {bad}\n"
+                                     f"{proc.stderr[-3000:]}")
+
+            # (c) the two driver twins at full width --------------------
+            gc.collect()
+            torch.cuda.empty_cache()
+            runs = []
+
+            def wrap_serve(module):
+                inner = module.serve_main
+
+                def serve_main(argv):
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    before = torch.cuda.memory_allocated()
+                    inner(argv)
+                    torch.cuda.synchronize()
+                    runs.append({"paged": "--paged" in argv,
+                                 "allocated_before_bytes": before,
+                                 "peak_bytes":
+                                     torch.cuda.max_memory_allocated()})
+                module.serve_main = serve_main
+
+            out, seconds, launches, _ = run("serve_batch", FULL, tmp,
+                                            "serve_full", wrap_serve)
+            models = re.findall(r"^model (\S+) \(full\): ([\d,]+) "
+                                r"parameters on cuda\S*, set up in "
+                                r"([\d.]+)s$", out, re.M)
+            drains = re.findall(r"^served (\d+) requests / (\d+) tokens in "
+                                r"(\d+) engine ticks, ([\d.]+)s "
+                                r"\(([\d.]+) tok/s\)$", out, re.M)
+            for r, (arch, params, init_s), (reqs, toks, ticks, wall, rate) \
+                    in zip(runs, models, drains):
+                r.update(arch=arch, params=int(params.replace(",", "")),
+                         init_s=float(init_s), requests=int(reqs),
+                         tokens=int(toks), ticks=int(ticks),
+                         wall_s=float(wall), tokens_per_s=float(rate))
+            line("c", "serve_batch", FULL, out, seconds, launches, runs=runs)
+            if len(runs) != 2 or len(models) != 2 or len(drains) != 2 or \
+                    any(r["arch"] != "qwen3-32b" or r["requests"] != 10
+                        or r["tokens"] != 60 for r in runs):
+                raise AssertionError(f"serve_batch --preset full:\n{out}")
+            # the first run's weights were released before the second drew
+            # its own
+            if runs[1]["allocated_before_bytes"] > 0.05 * runs[0][
+                    "peak_bytes"]:
+                raise AssertionError(f"serve_batch --preset full: {runs}")
+
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out, seconds, launches, _ = run("train_smollm", FULL, tmp,
+                                            "train_full")
+            steps = _one_line(out, r"^steps=(\d+) wall=([\d.]+)s "
+                                   r"mean_step=([\d.]+)ms restarts=(\d+) ")
+            loss = _one_line(out, r"^loss: first=([\d.]+) last=([\d.]+) "
+                                  r"min=([\d.]+)$")
+            first, last = float(loss.group(1)), float(loss.group(2))
+            line("c", "train_smollm", FULL, out, seconds, launches,
+                 steps=int(steps.group(1)), wall_s=float(steps.group(2)),
+                 mean_step_ms=float(steps.group(3)),
+                 restarts=int(steps.group(4)), loss_first=first,
+                 loss_last=last, peak_bytes=torch.cuda.max_memory_allocated())
+            if int(steps.group(1)) != 220 or int(steps.group(4)) != 1 or \
+                    not last < first:
+                raise AssertionError(f"train_smollm --preset full:\n{out}")
+    finally:
+        for k, v in prev_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    emit("examples", part="phase", seconds=time.perf_counter() - t_phase)
+    return {"launches": total}
+
+
 def main() -> int:
     import torch
 
@@ -4554,7 +4873,8 @@ def main() -> int:
                                fleet["launches"]):
         launches[kernel] += sum(counts)
     # 12. the other families, the earlier phases' weights released first --
-    peak_flops = observed["fitted"].peak_flops
+    fitted = observed["fitted"]
+    peak_flops = fitted.peak_flops
     del model, checked, served, observed, fleet
     import gc
     gc.collect()
@@ -4590,6 +4910,21 @@ def main() -> int:
         raise AssertionError("flash attention never launched on the "
                              "sharded path")
     for kernel, n in zip(names, sharded["launches"]):
+        launches[kernel] += n
+    # 15. the examples' torch twins, phase 14's weights released ----------
+    del trained, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("examples", part="start",
+         allocated_bytes=torch.cuda.memory_allocated())
+    twins = examples(dev, counters, fitted)
+    emit("kernels", phase_of="examples", launches=dict(zip(
+        names, twins["launches"])))
+    idle = [k for k in ("tuned_reduction", "matmul_tuned")
+            if twins["launches"][names.index(k)] <= 0]
+    if idle:
+        raise AssertionError(f"never launched in phase 15: {idle}")
+    for kernel, n in zip(names, twins["launches"]):
         launches[kernel] += n
 
     sources = {"tuned_reduction": ("src/repro_torch/csrc/tuned_reduction.cu",

@@ -122,14 +122,20 @@ def visited_blocks(S: int, bq: int, bk: int, causal: bool = True,
 
 def visible_pairs(S: int, causal: bool = True,
                   window: int | None = None) -> int:
-    """(q, k) pairs inside the mask: the work the function needs."""
+    """(q, k) pairs inside the mask: the work the function needs.  Row
+    ``qi`` sees keys ``max(0, qi - window + 1)`` through ``qi`` (causal)
+    or ``S - 1``; summed in closed form."""
 
-    total = 0
-    for qi in range(S):
-        hi = qi if causal else S - 1
-        lo = 0 if window is None else max(0, qi - window + 1)
-        total += max(0, hi - lo + 1)
-    return total
+    if window is None:
+        return S * (S + 1) // 2 if causal else S * S
+    if causal:
+        w = min(window, S)
+        return w * (w + 1) // 2 + (S - w) * w if w > 0 else 0
+    # rows qi < window see all S keys, later ones S + window - 1 - qi
+    full = min(max(window, 0), S)
+    end = max(full, min(S, S + window - 1))
+    first, last = S + window - 1 - full, S + window - end
+    return full * S + (end - full) * (first + last) // 2
 
 
 def schedule_us(S: int, BH: int, bq: int, bk: int, step: float, fixed: float,

@@ -12,7 +12,8 @@ rank runs on its local shards and records, per cell:
   ``Type: message``),
 * ``cost``: per-device FLOPs (``torch.utils.flop_counter``'s formulas at
   the local shapes) and bytes accessed (every non-view op reads its
-  inputs and writes its outputs: eager execution fuses nothing),
+  inputs and writes its outputs: eager execution fuses nothing; a
+  metadata query, a ``prim`` op, moves nothing),
 * ``collectives``: count and result bytes per type, mapped from the
   ``_c10d_functional`` ops DTensor's redistributions issue
   (``all_reduce`` -> ``all-reduce``, ``all_gather_into_tensor`` ->
@@ -246,6 +247,10 @@ class CountingMode:
                 outs = _tensors(out)
                 ns = func.namespace
                 name = func._schema.name.split("::")[-1]
+                if ns == "prim":
+                    # a metadata query (``prim.device``, asked by autograd
+                    # of every tensor it routes): no data moves
+                    return out
                 if ns in ("_c10d_functional", "c10d"):
                     if name != "wait_tensor":
                         rec = self.coll.setdefault(

@@ -222,24 +222,26 @@ def main(argv=None) -> None:
     print(f"served {len(done)} requests / {total_tokens} tokens in "
           f"{server.ticks} engine ticks, {wall:.2f}s "
           f"({total_tokens / max(wall, 1e-9):.1f} tok/s)")
-    st = server.stats()
-    if server.paged:
-        print(f"paged: peak {server.peak_used_pages} of "
-              f"{server.alloc.spec.n_pages} pages, {server.deferrals} "
-              f"deferrals, {server.share_hits} prefix shares "
-              f"({server.shared_tokens} tokens), {server.cow_copies} page "
-              f"copies")
+    if paged:
+        st = server.kv_stats()
+        print(f"  paged kv: page={page_size} pool={st['n_pages']:.0f} pages "
+              f"peak_used={st['peak_used_pages']:.0f} "
+              f"peak_active={st['peak_active']:.0f} "
+              f"deferrals={st['deferrals']:.0f}")
     if scheduler is not None or share_prefix:
-        print(f"scheduler: policy={scheduler or 'fcfs'} "
+        st = server.stats()
+        print(f"  scheduler: policy={scheduler or 'fcfs'} "
               f"preemptions={st['preemptions']:.0f} "
               f"share_hits={st['share_hits']:.0f} "
               f"shared_tokens={st['shared_tokens']:.0f} "
               f"cow_copies={st['cow_copies']:.0f}")
-    if server.drafter is not None:
-        print(f"speculate ({server.drafter.name}, depth "
-              f"{server.spec_depth}): {st['spec_accepted']:.0f} of "
-              f"{st['spec_proposed']:.0f} drafts accepted, "
-              f"{st['spec_ticks']:.0f} speculative ticks")
+    if speculate is not None:
+        st = server.stats()
+        print(f"  speculation: drafter={speculate} depth={spec_depth} "
+              f"proposed={st['spec_proposed']:.0f} "
+              f"accepted={st['spec_accepted']:.0f} "
+              f"(accept_rate={st['accept_rate']:.2f}) "
+              f"ticks/token={st['ticks_per_token']:.2f}")
     for r in done[:3]:
         print(f"  req{r.rid}: prompt={r.prompt[:4]}... out={r.out}")
     if obs is not None:

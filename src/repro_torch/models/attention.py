@@ -142,6 +142,73 @@ def _positions_standard(positions: torch.Tensor, S: int) -> bool:
     return bool(torch.equal(positions, want.expand_as(positions)))
 
 
+@functools.cache
+def _fake_flash_op():
+    """``repro_torch::fake_flash(q, k, v, causal, window)``: the flash
+    kernel's stand-in on the dry run's fake tensors, registered on first
+    use.  Its output is q's shape, and its FLOP formula counts the two
+    products over the (q, k) pairs inside the mask, ``4·B·H·D·pairs``;
+    its backward (``fake_flash_backward``) counts the five products of a
+    flash backward (the scores recomputed, dV, dP, dQ, dK),
+    ``10·B·H·D·pairs``, as torch's SDPA formulas do for an unmasked
+    call.  Neither runs on real tensors."""
+
+    from torch.utils.flop_counter import register_flop_formula
+
+    from ..kernels.flash_attention.ops import visible_pairs
+
+    def refuse(*_):
+        raise RuntimeError("fake_flash stands in for the flash kernel on "
+                           "fake tensors only")
+
+    @torch.library.custom_op("repro_torch::fake_flash", mutates_args=())
+    def fake_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, window: int | None) -> torch.Tensor:
+        refuse()
+
+    @torch.library.custom_op("repro_torch::fake_flash_backward",
+                             mutates_args=())
+    def fake_flash_backward(
+            grad: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, out: torch.Tensor, causal: bool,
+            window: int | None) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+        refuse()
+
+    @fake_flash.register_fake
+    def _(q, k, v, causal, window):
+        return torch.empty_like(q)
+
+    @fake_flash_backward.register_fake
+    def _(grad, q, k, v, out, causal, window):
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+    def setup(ctx, inputs, output):
+        q, k, v, ctx.causal, ctx.window = inputs
+        ctx.save_for_backward(q, k, v, output)
+
+    def backward(ctx, grad):
+        return (*fake_flash_backward(grad, *ctx.saved_tensors, ctx.causal,
+                                     ctx.window), None, None)
+
+    fake_flash.register_autograd(backward, setup_context=setup)
+
+    def products(n, q_shape, causal, window):
+        B, H, S, D = q_shape
+        return n * B * H * D * visible_pairs(S, causal, window)
+
+    @register_flop_formula(torch.ops.repro_torch.fake_flash)
+    def _(q_shape, k_shape, v_shape, causal, window, *_, **__):
+        return products(4, q_shape, causal, window)
+
+    @register_flop_formula(torch.ops.repro_torch.fake_flash_backward)
+    def _(grad_shape, q_shape, k_shape, v_shape, o_shape, causal, window,
+          *_, **__):
+        return products(10, q_shape, causal, window)
+
+    return torch.ops.repro_torch.fake_flash
+
+
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, window: int | None) -> torch.Tensor:
     """The flash kernel on (B, H, S, D) q/k/v; on DTensors, on each
@@ -159,10 +226,9 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         from torch._subclasses.fake_tensor import is_fake
         if is_fake(q):
             # the dry run's fake shards: stand in the kernel's cost, an
-            # O(S·D) output and the attention FLOPs, for the plain
-            # version's O(S²) scores
-            return torch.ops.aten._scaled_dot_product_flash_attention(
-                q, k, v, is_causal=causal)[0]
+            # O(S·D) output and the FLOPs of the pairs inside the mask,
+            # for the plain version's O(S²) scores
+            return _fake_flash_op()(q, k, v, causal, window)
         return flash_attention(q, k, v, causal=causal, window=window)
 
     ctx = current_ctx()

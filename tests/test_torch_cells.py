@@ -337,3 +337,108 @@ def test_uneven_ssm_heads_on_a_fake_2x4_group(hymba_cells, kind):
     rec = hymba_cells["heads6_" + kind]
     assert rec["status"] == "ok", rec["reason"]
     assert rec["n_devices"] == 8 and rec["cost"]["flops"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the dry run's flash stand-in counts the pairs inside the mask
+# ---------------------------------------------------------------------------
+
+
+def _loop_pairs(S, causal, window):
+    """(q, k) pairs inside the mask, row by row."""
+
+    total = 0
+    for qi in range(S):
+        hi = qi if causal else S - 1
+        lo = 0 if window is None else max(0, qi - window + 1)
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def _fake_flash_counts(shape, causal, window, grad=False):
+    """(forward FLOPs, forward + backward FLOPs, forward bytes, forward +
+    backward bytes) of one ``_flash`` call on fake (B, H, S, D) q, k, v
+    under ``CountingMode``."""
+
+    from repro_torch.models.attention import _flash
+    mode = C.CountingMode()
+    with mode:
+        q, k, v = (torch.empty(shape, requires_grad=grad) for _ in range(3))
+        g = torch.ones(shape)
+    mode.counting = True
+    try:
+        with mode:
+            out = _flash(q, k, v, causal=causal, window=window)
+            fwd, fwd_bytes = mode.flops, mode.bytes
+            assert tuple(out.shape) == shape
+            if grad:
+                out.backward(g)
+    finally:
+        mode.counting = False
+    return fwd, mode.flops, fwd_bytes, mode.bytes
+
+
+# (causal, window, pairs counted by hand at S = 256): rows 0-63 of the
+# window see qi + 1 keys (64·65/2) and rows 64-255 see 64 (192·64); the
+# causal mask S·(S+1)/2; no mask S²
+FAKE_FLASH_CASES = {"windowed": (True, 64, 2080 + 12288),
+                    "causal": (True, None, 256 * 257 // 2),
+                    "unmasked": (False, None, 256 * 256)}
+
+
+@pytest.mark.parametrize("case", sorted(FAKE_FLASH_CASES))
+def test_fake_flash_counts_the_pairs_inside_the_mask(case):
+    from torch.utils.flop_counter import sdpa_flop_count
+    from repro_torch.kernels.flash_attention.ops import visible_pairs
+    causal, window, pairs = FAKE_FLASH_CASES[case]
+    B, H, S, D = shape = (2, 3, 256, 16)
+    assert visible_pairs(S, causal, window) == _loop_pairs(S, causal,
+                                                           window) == pairs
+    flops, _, nbytes, _ = _fake_flash_counts(shape, causal, window)
+    assert flops == 4 * B * H * D * pairs
+    # q, k, v read and the output written, O(S·D)
+    assert nbytes == 4 * B * H * S * D * 4
+    if case == "unmasked":
+        assert flops == sdpa_flop_count(shape, shape, shape)
+
+
+def test_fake_flash_backward_counts_five_products_over_the_pairs():
+    B, H, S, D = shape = (1, 2, 256, 16)
+    fwd, total, fwd_bytes, total_bytes = _fake_flash_counts(
+        shape, True, 64, grad=True)
+    pairs = 2080 + 12288
+    assert fwd == 4 * B * H * D * pairs
+    # the backward's products over the same pairs, as torch's SDPA
+    # backward formula counts them over S² (its elementwise ops add none)
+    assert total == fwd + 10 * B * H * D * pairs
+    # bytes: the forward reads q, k, v and writes the output; the
+    # backward reads the gradient, q, k, v and the output and writes dq,
+    # dk, dv; autograd's device queries on the way move nothing
+    one = B * H * S * D * 4
+    assert fwd_bytes == 4 * one and total_bytes == 12 * one
+
+
+def test_counting_mode_counts_no_bytes_for_a_metadata_query():
+    mode = C.CountingMode()
+    with mode:
+        x = torch.empty(64, 64)
+    mode.counting = True
+    try:
+        with mode:
+            assert torch.ops.prim.device(x) == x.device
+            y = x * 2
+    finally:
+        mode.counting = False
+    assert mode.bytes == x.nbytes + y.nbytes and mode.flops == 0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_visible_pairs_closed_form_equals_the_loop(causal):
+    from repro_torch.kernels.flash_attention.ops import visible_pairs
+    for S in range(0, 70):
+        for window in [None, *range(-3, 75)]:
+            assert visible_pairs(S, causal, window) == \
+                _loop_pairs(S, causal, window), (S, window)
+    for S, window in ((4096, 1024), (32768, 1024), (524288, 4096)):
+        assert visible_pairs(S, causal, window) == \
+            _loop_pairs(S, causal, window)

@@ -164,7 +164,8 @@ def test_launch_serve_on_the_cpu(capsys, flags):
     out = capsys.readouterr().out
     assert "served 3 requests / 9 tokens" in out
     if flags:
-        assert "paged: peak" in out and "speculate (ngram, depth 4)" in out
+        assert "  paged kv: page=16 pool=" in out and \
+            "  speculation: drafter=ngram depth=4 proposed=" in out
 
 
 def _driver(capsys, flags):
@@ -173,6 +174,34 @@ def _driver(capsys, flags):
                 "10", "--max-new", "3", "--prefill-chunk", "4",
                 "--device", "cpu"] + flags)
     return capsys.readouterr().out
+
+
+SUMMARY_LINES = ("  paged kv: ", "  scheduler: ", "  speculation: ")
+
+
+def test_launch_serve_prints_the_reference_summary_lines(capsys, tmp_path,
+                                                         monkeypatch):
+    """On the same flags the port's driver and the reference's print the
+    same ``paged kv:``, ``scheduler:`` and ``speculation:`` lines, field
+    for field."""
+
+    from repro.launch.serve import main as jax_serve_main
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "jax.json"))
+    flags = ["--arch", "qwen1.5-4b", "--preset", "smoke", "--requests",
+             "3", "--batch", "2", "--context", "48", "--prompt-len", "10",
+             "--max-new", "3", "--prefill-chunk", "4", "--paged",
+             "--scheduler", "prefix", "--share-prefix", "--speculate",
+             "ngram"]
+    outs = []
+    for run, extra in ((serve_main, ["--device", "cpu"]),
+                       (jax_serve_main, [])):
+        run(flags + extra)
+        outs.append([ln for ln in capsys.readouterr().out.splitlines()
+                     if ln.startswith(SUMMARY_LINES)])
+    got, want = outs
+    assert [ln.split(":")[0] for ln in want] == \
+        ["  paged kv", "  scheduler", "  speculation"]
+    assert got == want
 
 
 @pytest.mark.parametrize("policy", ["fcfs", "priority", "prefix"])

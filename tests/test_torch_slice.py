@@ -38,6 +38,7 @@ from repro_torch.tune import build_tunable  # noqa: E402
 N = 2**14
 PAPER = {"size": 2**20, "NP": 128, "GMT": 16, "L": 8, "kind": "minimum"}
 SRC = Path(__file__).resolve().parents[1] / "src"
+EXAMPLES = SRC.parent / "examples"
 
 
 @pytest.fixture(autouse=True)
@@ -167,11 +168,24 @@ for name in ("repro_torch.obs", "repro_torch.obs.metrics",
                  "mamba2_27b", "minitron_8b", "mixtral_8x22b", "qwen15_4b",
                  "qwen3_32b", "smollm_135m", "whisper_medium"))):
     assert name in names, name
+# the examples' torch twins: importing one runs nothing (``__main__``)
+import importlib.util, pathlib
+twins = sorted(pathlib.Path(sys.argv[1]).glob("torch_*.py"))
+assert [t.stem for t in twins] == [
+    "torch_autotune_minimum", "torch_fleet_rollout", "torch_quickstart",
+    "torch_serve_batch", "torch_train_smollm", "torch_tune_distributed"]
+for path in twins:
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = [m for m in sys.modules
+       if m in ("jax", "ml_dtypes", "repro") or m.startswith(("jax.", "repro."))]
+assert not bad, bad
 import torch.distributed as dist
 assert not dist.is_initialized()
 print(len(names))
 """
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+    out = subprocess.run([sys.executable, "-c", code, str(EXAMPLES)],
+                         capture_output=True,
                          text=True, env={"PYTHONPATH": str(SRC),
                                          "PATH": "/usr/bin:/bin"},
                          timeout=120)
