@@ -821,47 +821,30 @@ def two_waves(server, prompts, max_new, after_tick=None) -> dict:
 
 
 def tick_profile(server) -> dict:
-    """One engine tick under ``torch.profiler``: host time around it
-    (the tick ends in a sync), the device's busy time (the union of its
-    kernel and copy intervals) and idle share over the tick, the kernel
-    launches, and the three device ops that took the most time.  Device
-    fields are None when the trace holds no device event."""
-
-    import collections
+    """One engine tick under ``torch.profiler``, reduced by the
+    benchmark's ``bench.trace.reduce``: host time around it (the tick
+    ends in a sync), the device's busy time (the union of its kernel and
+    copy intervals) and idle share over the tick, the kernel launches,
+    and the three device ops that took the most time.  Device fields are
+    None when the trace holds no device event."""
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        server.tick()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.profiler.kineto_results.events()
-    device = sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
-                     for e in events if e.device_type() == DeviceType.CUDA),
-                    key=lambda ev: ev[1])
-    busy, end = 0, None
-    per_name: dict = collections.defaultdict(int)
-    for name, t_s, t_e in device:
-        per_name[name] += t_e - t_s
-        if end is None or t_s > end:
-            busy += t_e - t_s
-            end = t_e
-        elif t_e > end:
-            busy += t_e - end
-            end = t_e
-    copies = sum(n.startswith(("Memcpy", "Memset")) for n, _, _ in device)
-    busy_ms = busy / 1e6 if device else None
+    from bench.trace import Profiler
+
+    prof = Profiler(torch.device("cuda"))
+    prof.start()
+    server.tick()
+    prof.stop()
+    sl = prof.reduce()
+    host_ms = sl.window_s * 1e3
+    device = sl.busy_s is not None
+    busy_ms = sl.busy_s * 1e3 if device else None
     return {"profiled_host_ms": host_ms, "device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / host_ms) if device else None,
-            "kernels": len(device) - copies if device else None,
-            "copies": copies if device else None,
-            "top_device_ops": [[n[:100], t / 1e6] for n, t in sorted(
-                per_name.items(), key=lambda kv: -kv[1])[:3]]}
+            "kernels": sl.kernels if device else None,
+            "copies": sl.copies if device else None,
+            "top_device_ops": [[n[:100], t * 1e3] for n, t in sl.top_ops[:3]]}
 
 
 def first_divergence(api_cut, p_cut, prompts, got, want, d, dev) -> dict:

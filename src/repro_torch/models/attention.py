@@ -22,6 +22,12 @@ reference scatters through a one-hot ``(B, P, page_size)`` match and
 the same values.  Cross attention (``attention(x_kv=...)``, and
 :func:`decode_cross_attention` against precomputed encoder or image K/V)
 has no RoPE and no mask, and never takes the flash kernel.
+
+Each path names two ranges (:func:`repro_torch.obs.profile.span`, timed
+on the device's stream): ``attn.kv``, the keys and values made ready for
+the core (the cache write, the page-table gather, the head repeat), and
+``attn.core``, the attention core over them (upcast, scores, mask,
+softmax, values).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..distribute.sharding import current_ctx
 from ..distribute.sharding import logical_constraint as lc
+from ..obs.profile import span
 from .common import DEFAULT_DTYPE, PSpec, rms_norm, rope
 
 NEG_INF = -1e30
@@ -302,34 +309,36 @@ def attention(p: dict, cfg: ArchConfig, x: torch.Tensor,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    with span("attn.kv"):
+        k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     q = lc(q, "batch", "heads", "seq", None)
     k = lc(k, "batch", "heads", "seq", None)
 
-    if cross:
-        mask = torch.ones((1, 1, S, xkv.shape[1]), dtype=torch.bool,
-                          device=x.device)
-        o = _on_shards(_sdpa, q, k, v, mask, cfg.hd ** -0.5)
-    elif use_flash and _flash_supported(q) \
-            and _positions_standard(positions, S):
-        # window only applies under causality in the plain paths; match
-        # that here so use_flash never changes semantics
-        o = _flash(q, k, v, causal=causal,
-                   window=window if causal else None)
-    elif causal and S > Q_CHUNK_THRESHOLD:
-        o = _on_shards(_sdpa_qchunked, q, k, v, positions, cfg.hd ** -0.5,
-                       causal=True, window=window)
-    else:
-        if not causal:
-            mask = torch.ones((1, 1, S, S), dtype=torch.bool,
+    with span("attn.core"):
+        if cross:
+            mask = torch.ones((1, 1, S, xkv.shape[1]), dtype=torch.bool,
                               device=x.device)
+            o = _on_shards(_sdpa, q, k, v, mask, cfg.hd ** -0.5)
+        elif use_flash and _flash_supported(q) \
+                and _positions_standard(positions, S):
+            # window only applies under causality in the plain paths;
+            # match that here so use_flash never changes semantics
+            o = _flash(q, k, v, causal=causal,
+                       window=window if causal else None)
+        elif causal and S > Q_CHUNK_THRESHOLD:
+            o = _on_shards(_sdpa_qchunked, q, k, v, positions,
+                           cfg.hd ** -0.5, causal=True, window=window)
         else:
-            qi = positions[:, None, :, None]           # (B,1,S,1)
-            ki = positions[:, None, None, :]           # (B,1,1,S)
-            mask = ki <= qi
-            if window is not None:
-                mask &= ki >= qi - window + 1
-        o = _on_shards(_sdpa, q, k, v, mask, cfg.hd ** -0.5)
+            if not causal:
+                mask = torch.ones((1, 1, S, S), dtype=torch.bool,
+                                  device=x.device)
+            else:
+                qi = positions[:, None, :, None]           # (B,1,S,1)
+                ki = positions[:, None, None, :]           # (B,1,1,S)
+                mask = ki <= qi
+                if window is not None:
+                    mask &= ki >= qi - window + 1
+            o = _on_shards(_sdpa, q, k, v, mask, cfg.hd ** -0.5)
     o = lc(o, "batch", "heads", "seq", None)
     out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
     return lc(out, "batch", "seq", "embed")
@@ -389,27 +398,29 @@ def decode_attention(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
         k_new = rope(k_new, positions, cfg.rope_theta)
 
     slot = torch.remainder(cur_len, C)            # (B,) ring for SWA
-    if _is_dtensor(cache["k"]):
-        # a DTensor cache (batch, kv heads or ring slots sharded) takes
-        # the write as a masked select over the ring, which DTensor
-        # shards like any elementwise op; the index write below has no
-        # sharding strategy.  Same values, one pass over the ring.
-        hit = torch.arange(C, device=x.device)[None, :] == slot[:, None]
-        if active is not None:
-            hit = hit & active[:, None]
-        for name, new in (("k", k_new), ("v", v_new)):
-            buf = cache[name]
-            buf.copy_(torch.where(hit[:, None, :, None], new.to(buf.dtype),
-                                  buf))
-    else:
-        rows = torch.arange(B, device=x.device)
-        for name, new in (("k", k_new), ("v", v_new)):
-            buf = cache[name]
-            val = new[:, :, 0].to(buf.dtype)      # (B, Hkv, hd)
+    with span("attn.kv"):
+        if _is_dtensor(cache["k"]):
+            # a DTensor cache (batch, kv heads or ring slots sharded)
+            # takes the write as a masked select over the ring, which
+            # DTensor shards like any elementwise op; the index write
+            # below has no sharding strategy.  Same values, one pass
+            # over the ring.
+            hit = torch.arange(C, device=x.device)[None, :] == slot[:, None]
             if active is not None:
-                val = torch.where(active[:, None, None], val,
-                                  buf[rows, :, slot])
-            buf[rows, :, slot] = val
+                hit = hit & active[:, None]
+            for name, new in (("k", k_new), ("v", v_new)):
+                buf = cache[name]
+                buf.copy_(torch.where(hit[:, None, :, None],
+                                      new.to(buf.dtype), buf))
+        else:
+            rows = torch.arange(B, device=x.device)
+            for name, new in (("k", k_new), ("v", v_new)):
+                buf = cache[name]
+                val = new[:, :, 0].to(buf.dtype)      # (B, Hkv, hd)
+                if active is not None:
+                    val = torch.where(active[:, None, None], val,
+                                      buf[rows, :, slot])
+                buf[rows, :, slot] = val
 
     # validity per slot: ring index i last held absolute position
     # cur_len[b] - ((slot[b] - i) mod C)
@@ -423,8 +434,9 @@ def decode_attention(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
         valid = idx <= cl                             # (B, C)
     mask = valid[:, None, None, None, :]              # (B, 1, 1, 1, C)
 
-    o = _on_shards(_grouped_sdpa, q, cache["k"], cache["v"], mask,
-                   cfg.hd ** -0.5).to(x.dtype)
+    with span("attn.core"):
+        o = _on_shards(_grouped_sdpa, q, cache["k"], cache["v"], mask,
+                       cfg.hd ** -0.5).to(x.dtype)
     out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
     return lc(out, "batch", "seq", "embed"), cache
 
@@ -480,26 +492,29 @@ def decode_attention_chunked(p: dict, cfg: ArchConfig, x: torch.Tensor,
         mask &= kp[:, None, :] >= qp - window + 1
     mask = mask[:, None, None, :, :]                    # (B, 1, 1, T, C+T)
 
-    k_all = torch.cat([cache["k"].float(), k_new.float()], dim=2)
-    v_all = torch.cat([cache["v"].float(), v_new.float()], dim=2)
-    o = _on_shards(_grouped_sdpa, q, k_all, v_all, mask,
-                   cfg.hd ** -0.5).to(x.dtype)
+    with span("attn.kv"):
+        k_all = torch.cat([cache["k"].float(), k_new.float()], dim=2)
+        v_all = torch.cat([cache["v"].float(), v_new.float()], dim=2)
+        if write:
+            # ring scatter, after the copies above that the core reads:
+            # chunk token t lands in slot pos[t] mod C; each ring index
+            # takes its LAST valid writer
+            ring = torch.remainder(pos, C)              # (B, T)
+            match = (ring[:, :, None] == idx[None]) & valid[:, :, None]
+            hit = match.any(dim=1)                      # (B, C)
+            last_t = torch.clamp(
+                (match * (t_idx[None, :, None] + 1)).amax(dim=1) - 1, min=0)
+            for name, new in (("k", k_new), ("v", v_new)):
+                buf = cache[name]
+                vals = torch.take_along_dim(new, last_t[:, None, :, None],
+                                            dim=2)
+                buf.copy_(torch.where(hit[:, None, :, None],
+                                      vals.to(buf.dtype), buf))
+    with span("attn.core"):
+        o = _on_shards(_grouped_sdpa, q, k_all, v_all, mask,
+                       cfg.hd ** -0.5).to(x.dtype)
     out = lc(torch.einsum("bhsk,hkd->bsd", o, p["wo"]), "batch", "seq",
              "embed")
-
-    if write:
-        # ring scatter: chunk token t lands in slot pos[t] mod C; each
-        # ring index takes its LAST valid writer
-        ring = torch.remainder(pos, C)                  # (B, T)
-        match = (ring[:, :, None] == idx[None]) & valid[:, :, None]  # (B,T,C)
-        hit = match.any(dim=1)                          # (B, C)
-        last_t = torch.clamp(
-            (match * (t_idx[None, :, None] + 1)).amax(dim=1) - 1, min=0)
-        for name, new in (("k", k_new), ("v", v_new)):
-            buf = cache[name]
-            vals = torch.take_along_dim(new, last_t[:, None, :, None], dim=2)
-            buf.copy_(torch.where(hit[:, None, :, None], vals.to(buf.dtype),
-                                  buf))
     return out, cache
 
 
@@ -640,7 +655,8 @@ def decode_attention_chunked_paged(p: dict, cfg: ArchConfig, x: torch.Tensor,
     if cfg.use_rope:
         q = rope(q, pos, cfg.rope_theta)
         k_new = rope(k_new, pos, cfg.rope_theta)
-    k, v = _paged_kv(pool, page_table, writes, k_new, v_new, write=write)
+    with span("attn.kv"):
+        k, v = _paged_kv(pool, page_table, writes, k_new, v_new, write=write)
 
     kp = torch.arange(M * ps, device=dev)[None, None, :]    # (1, 1, M*ps)
     qp = pos[:, :, None]                                # (B, T, 1)
@@ -649,8 +665,9 @@ def decode_attention_chunked_paged(p: dict, cfg: ArchConfig, x: torch.Tensor,
         mask &= kp >= qp - window + 1
     mask = mask[:, None, None, :, :]                    # (B, 1, 1, T, M*ps)
 
-    o = _on_shards(_grouped_sdpa, q, k, v, mask,
-                   cfg.hd ** -0.5).to(x.dtype)
+    with span("attn.core"):
+        o = _on_shards(_grouped_sdpa, q, k, v, mask,
+                       cfg.hd ** -0.5).to(x.dtype)
     out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
     return lc(out, "batch", "seq", "embed"), pool
 

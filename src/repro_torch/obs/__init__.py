@@ -22,16 +22,28 @@ bundle a :class:`~repro_torch.runtime.serve.Server` accepts via ``obs=``:
 recorded traces.
 """
 
+import importlib
+
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
-from .monitor import ConformanceMonitor
-from .observe import Observability
-from .profile import PhaseProfiler
+from .profile import PhaseProfiler, span
 from .trace import (TRACE_KIND, TRACE_SCHEMA, Span, TraceRecorder,
                     chrome_events, export_trace, parse_trace,
                     spans_from_events, validate_trace)
 
+# The monitor and the bundle import the serving runtime, whose model
+# layers import :mod:`.profile`: they load on first use, so that a model
+# imported first does not import the runtime back through this package.
+_LAZY = {"ConformanceMonitor": ".monitor", "Observability": ".observe"}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name], __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "ConformanceMonitor", "Observability", "PhaseProfiler",
+           "ConformanceMonitor", "Observability", "PhaseProfiler", "span",
            "TRACE_KIND", "TRACE_SCHEMA", "Span", "TraceRecorder",
            "chrome_events", "export_trace", "parse_trace",
            "spans_from_events", "validate_trace"]

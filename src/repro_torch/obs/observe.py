@@ -154,9 +154,19 @@ class Observability:
 
     # -- tick + phase hooks ------------------------------------------------
 
-    def on_tick_begin(self, server, tick: int) -> None:
+    def on_tick_open(self, server) -> None:
+        """The tick's work starts (before admission): the profiler's
+        tick clock opens, so that ``host`` holds admission and page
+        backing.  A tick that finds no slot to step is cancelled."""
+
         if self.profiler:
-            self.profiler.tick_begin()
+            self.profiler.tick_begin(server.device)
+
+    def on_tick_cancel(self, server) -> None:
+        if self.profiler:
+            self.profiler.tick_cancel()
+
+    def on_tick_begin(self, server, tick: int) -> None:
         if self.recorder:
             self.recorder.begin("tick", tick=tick)
 
@@ -196,15 +206,20 @@ class Observability:
             self.profiler.tick_end()
 
     def phase_begin(self, name: str, tick: int) -> float:
-        t0 = time.perf_counter()
+        t0 = (self.profiler.phase_begin() if self.profiler
+              else time.perf_counter())
         if self.recorder:
             self.recorder.begin(f"phase.{name}", tick=tick)
         return t0
 
     def phase_end(self, name: str, tick: int, t0: float, sync=None,
+                  counts: dict[str, int] | None = None,
                   **args: Any) -> None:
+        """``counts``: the phase's counters, for the profiler alone;
+        ``args`` go on the recorder's event."""
+
         if self.profiler:
-            self.profiler.phase_end(name, t0, sync=sync)
+            self.profiler.phase_end(name, t0, sync=sync, counts=counts)
         if self.recorder:
             self.recorder.end(f"phase.{name}", tick=tick, **args)
 
@@ -228,7 +243,9 @@ class Observability:
                      else None),
             phases=(self.profiler.report() if self.profiler else None),
             monitor=(self.monitor.report() if self.monitor
-                     else None))
+                     else None),
+            origin_ns=(self.recorder.origin_ns if self.recorder
+                       else None))
 
 
 __all__ = ["Observability"]

@@ -58,13 +58,16 @@ class TraceRecorder:
 
     ``ts`` is microseconds since recorder construction
     (``time.perf_counter`` based, so monotone by construction); ``tick``
-    is whatever engine clock the caller passes.  Open spans are tracked
-    per track so :meth:`close_open_spans` can truncate cleanly at
-    export time (a drain that raised mid-tick still yields a valid,
-    balanced trace)."""
+    is whatever engine clock the caller passes.  ``origin_ns`` is that
+    origin on the Unix-epoch clock (``time.time_ns()``), which is
+    ``torch.profiler``'s: ``origin_ns + 1e3 * ts`` lays an event over a
+    profiler trace of the same run.  Open spans are tracked per track so
+    :meth:`close_open_spans` can truncate cleanly at export time (a
+    drain that raised mid-tick still yields a valid, balanced trace)."""
 
     def __init__(self, clock: Callable[[], float] = time.perf_counter):
         self._clock = clock
+        self.origin_ns = time.time_ns()
         self._t0 = clock()
         self.events: list[dict] = []
         self._open: dict[tuple, list[str]] = {}
@@ -172,8 +175,11 @@ def export_trace(events: Iterable[dict], path: str | None = None, *,
                  metrics: dict | None = None,
                  phases: dict | None = None,
                  monitor: dict | None = None,
-                 meta: dict | None = None) -> dict:
-    """Build (and optionally atomically write) the trace document."""
+                 meta: dict | None = None,
+                 origin_ns: int | None = None) -> dict:
+    """Build (and optionally atomically write) the trace document.
+    ``origin_ns``: the recorder's :attr:`TraceRecorder.origin_ns`, kept
+    as ``meta["ts_origin_unix_ns"]``."""
 
     doc: dict[str, Any] = {
         "kind": TRACE_KIND,
@@ -182,6 +188,8 @@ def export_trace(events: Iterable[dict], path: str | None = None, *,
         "displayTimeUnit": "ms",
         "traceEvents": chrome_events(events),
     }
+    if origin_ns is not None:
+        doc["meta"]["ts_origin_unix_ns"] = int(origin_ns)
     if metrics is not None:
         doc["metrics"] = metrics
     if phases is not None:

@@ -65,6 +65,7 @@ import torch
 
 from ..models.api import ModelAPI
 from ..models.common import tree_leaves
+from ..obs.profile import span
 from .kv import NO_PAGE, PagedKVAllocator, PagedKVSpec
 from .scheduler import Scheduler, make_scheduler
 from .speculate import make_drafter
@@ -82,6 +83,18 @@ def _snapshot(a: np.ndarray, device) -> torch.Tensor:
     copy."""
 
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def _prefill_counts(pos: np.ndarray, n: np.ndarray, positions: int) -> dict:
+    """A prefill step's counters: the keys its slots read (a slot at
+    ``pos`` with ``n`` chunk tokens reads ``pos + n``), their real
+    query-key pairs (its token ``i`` attends ``pos + i + 1`` keys), the
+    chunk tokens, and the positions the padded step computes."""
+
+    pos, n = pos.astype(np.int64), n.astype(np.int64)
+    return {"kv_tokens": int((pos + n).sum()),
+            "qk_pairs": int((n * pos + n * (n + 1) // 2).sum()),
+            "tokens": int(n.sum()), "positions": positions}
 
 
 @dataclass
@@ -605,17 +618,27 @@ class Server:
         token also yields the request's next generated token, exactly as
         the tokenwise tick that fed that token would have."""
 
-        self._admit()
+        with span("serve.tick", clock=None):
+            return self._tick()
+
+    def _tick(self) -> int:
+        ob = self.obs
+        if ob is not None:
+            ob.on_tick_open(self)
+        with span("serve.admit", clock="host"):
+            self._admit()
         drafts = self._propose_drafts()
         if self.paged:
-            self._back_pages(drafts)
+            with span("serve.back_pages", clock="host"):
+                self._back_pages(drafts)
         active = [s for s in range(self.batch) if self.slot_req[s] is not None]
         self.peak_active = max(self.peak_active, len(active))
         if not active:
+            if ob is not None:
+                ob.on_tick_cancel(self)
             return 0
         self.ticks += 1
         self.slot_ticks += len(active)
-        ob = self.obs
         if ob is not None:
             ob.on_tick_begin(self, self.ticks)
         decode = [s for s in active if self._phase(s) == "decode"]
@@ -626,70 +649,83 @@ class Server:
                  if self.paged else ())
 
         if decode:
-            if ob is not None:
-                t0 = ob.phase_begin("decode", self.ticks)
-            tokens = np.zeros((self.batch, 1), np.int32)
-            mask = np.zeros(self.batch, bool)
-            for s in decode:
-                tokens[s, 0] = self.slot_req[s].out[-1]
-                mask[s] = True
-            logits, self.state = self.api.decode_step(
-                self.params, self.state, self._tensor(tokens),
-                _snapshot(self.slot_pos, self.device), *extra,
-                active=self._tensor(mask))
-            nxt = logits.argmax(dim=-1).cpu().numpy()
-            for s in decode:
-                req = self.slot_req[s]
-                req._cursor += 1  # type: ignore[attr-defined]
-                self.slot_pos[s] += 1
-                req.out.append(int(nxt[s]))
-                self.tokens_generated += 1
-                self._retire_if_done(s)
-            if ob is not None:
-                ob.phase_end("decode", self.ticks, t0, sync=self.state,
-                             slots=len(decode))
+            with span("serve.decode", clock=None):
+                if ob is not None:
+                    t0 = ob.phase_begin("decode", self.ticks)
+                    # each slot's query reads its slot_pos + 1 keys
+                    keys = int(self.slot_pos[decode].sum()) + len(decode)
+                tokens = np.zeros((self.batch, 1), np.int32)
+                mask = np.zeros(self.batch, bool)
+                for s in decode:
+                    tokens[s, 0] = self.slot_req[s].out[-1]
+                    mask[s] = True
+                with span("serve.dispatch", clock="host"):
+                    logits, self.state = self.api.decode_step(
+                        self.params, self.state, self._tensor(tokens),
+                        _snapshot(self.slot_pos, self.device), *extra,
+                        active=self._tensor(mask))
+                with span("serve.readback", clock="host"):
+                    nxt = logits.argmax(dim=-1).cpu().numpy()
+                    for s in decode:
+                        req = self.slot_req[s]
+                        req._cursor += 1  # type: ignore[attr-defined]
+                        self.slot_pos[s] += 1
+                        req.out.append(int(nxt[s]))
+                        self.tokens_generated += 1
+                        self._retire_if_done(s)
+                if ob is not None:
+                    ob.phase_end("decode", self.ticks, t0, sync=self.state,
+                                 counts={"kv_tokens": keys, "qk_pairs": keys},
+                                 slots=len(decode))
 
         if spec:
-            if ob is not None:
-                t0 = ob.phase_begin("speculate", self.ticks)
-            self._speculate(spec, drafts, extra)
-            if ob is not None:
-                ob.phase_end("speculate", self.ticks, t0, sync=self.state,
-                             slots=len(spec))
+            with span("serve.speculate", clock=None):
+                if ob is not None:
+                    t0 = ob.phase_begin("speculate", self.ticks)
+                self._speculate(spec, drafts, extra)
+                if ob is not None:
+                    ob.phase_end("speculate", self.ticks, t0, sync=self.state,
+                                 slots=len(spec))
 
         if prefill:
-            if ob is not None:
-                t0 = ob.phase_begin("prefill", self.ticks)
-            T = self.prefill_chunk
-            tokens = np.zeros((self.batch, T), np.int32)
-            lengths = np.zeros(self.batch, np.int32)
-            for s in prefill:
-                req = self.slot_req[s]
-                cur = req._cursor  # type: ignore[attr-defined]
-                # the stream includes generated tokens: a preempted
-                # request re-prefills prompt + out and resumes exactly
-                stream = req.prompt + req.out
-                n = min(T, req._prefill_target - cur)
-                tokens[s, :n] = stream[cur:cur + n]
-                lengths[s] = n
-            logits, self.state = self.api.prefill_step(
-                self.params, self.state, self._tensor(tokens),
-                _snapshot(self.slot_pos, self.device),
-                self._tensor(lengths), *extra)
-            nxt = logits.argmax(dim=-1).cpu().numpy()
-            self.prefill_chunks += len(prefill)
-            for s in prefill:
-                req = self.slot_req[s]
-                n = int(lengths[s])
-                req._cursor += n  # type: ignore[attr-defined]
-                self.slot_pos[s] += n
-                if req._cursor >= req._prefill_target:
-                    req.out.append(int(nxt[s]))
-                    self.tokens_generated += 1
-                    self._retire_if_done(s)
-            if ob is not None:
-                ob.phase_end("prefill", self.ticks, t0, sync=self.state,
-                             slots=len(prefill))
+            with span("serve.prefill", clock=None):
+                if ob is not None:
+                    t0 = ob.phase_begin("prefill", self.ticks)
+                T = self.prefill_chunk
+                tokens = np.zeros((self.batch, T), np.int32)
+                lengths = np.zeros(self.batch, np.int32)
+                for s in prefill:
+                    req = self.slot_req[s]
+                    cur = req._cursor  # type: ignore[attr-defined]
+                    # the stream includes generated tokens: a preempted
+                    # request re-prefills prompt + out and resumes exactly
+                    stream = req.prompt + req.out
+                    n = min(T, req._prefill_target - cur)
+                    tokens[s, :n] = stream[cur:cur + n]
+                    lengths[s] = n
+                if ob is not None:
+                    counts = _prefill_counts(self.slot_pos[prefill],
+                                             lengths[prefill], self.batch * T)
+                with span("serve.dispatch", clock="host"):
+                    logits, self.state = self.api.prefill_step(
+                        self.params, self.state, self._tensor(tokens),
+                        _snapshot(self.slot_pos, self.device),
+                        self._tensor(lengths), *extra)
+                with span("serve.readback", clock="host"):
+                    nxt = logits.argmax(dim=-1).cpu().numpy()
+                    self.prefill_chunks += len(prefill)
+                    for s in prefill:
+                        req = self.slot_req[s]
+                        n = int(lengths[s])
+                        req._cursor += n  # type: ignore[attr-defined]
+                        self.slot_pos[s] += n
+                        if req._cursor >= req._prefill_target:
+                            req.out.append(int(nxt[s]))
+                            self.tokens_generated += 1
+                            self._retire_if_done(s)
+                if ob is not None:
+                    ob.phase_end("prefill", self.ticks, t0, sync=self.state,
+                                 counts=counts, slots=len(prefill))
 
         # sliding-window reclamation: pages whose positions all fell out
         # of the window are never attended again; the next tick's

@@ -7,7 +7,9 @@ error-feedback compression of the cross-pod gradients.
 given (the loop's straggler re-dispatch and its restart from the initial
 state rely on that).  Gradients come from ``torch.autograd.grad`` over
 the parameter leaves; microbatches run as a Python loop that sums f32
-gradients, the reference's ``lax.scan``.
+gradients, the reference's ``lax.scan``.  Under a ``torch.profiler``
+the step names its ``train.forward``, ``train.backward`` and
+``train.optimizer`` ranges (:func:`repro_torch.obs.profile.span`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from ..models.api import ModelAPI
 from ..models.common import tree_leaves, tree_map
+from ..obs.profile import span
 from ..optim import (OptState, adamw_init, adamw_update, cosine_schedule,
                      ef_compress_grads)
 
@@ -104,9 +107,11 @@ def value_and_grad(api: ModelAPI, params, batch: dict):
     it = iter(leaves)
     live = tree_map(lambda _: next(it), params)
     with torch.enable_grad():
-        loss = api.loss(live, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
+        with span("train.forward", clock=None):
+            loss = api.loss(live, batch)
+        with span("train.backward", clock=None):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
     it = iter(_unnested(g) for g in grads)
     return loss.detach(), tree_map(lambda _: next(it), params)
 
@@ -159,9 +164,10 @@ def build_train_step(api: ModelAPI, tcfg: TrainConfig
         if tcfg.compress_pod_grads:
             grads, residual = ef_compress_grads(grads, residual)
 
-        params, opt, metrics = adamw_update(
-            state.params, grads, state.opt, lr=lr,
-            weight_decay=tcfg.weight_decay, clip_norm=tcfg.clip_norm)
+        with span("train.optimizer", clock=None):
+            params, opt, metrics = adamw_update(
+                state.params, grads, state.opt, lr=lr,
+                weight_decay=tcfg.weight_decay, clip_norm=tcfg.clip_norm)
         metrics = {k: _replicated(v) for k, v in
                    dict(metrics, loss=loss).items()}
         return TrainState(params, opt, residual), metrics

@@ -794,6 +794,35 @@ def test_phase_profiler_syncs_the_device_of_a_cuda_tensor(cuda,
     assert prof.report()["decode"]["count"] == 1.0
 
 
+def test_attention_ranges_lie_inside_their_synchronised_phase(cuda):
+    """A profiled paged drain of a 2-layer cut of qwen1.5-4b at full width
+    (bf16, on the card) times each layer's ``attn.kv`` and ``attn.core``
+    by CUDA events on the stream: once a layer and step, and together
+    within the phase's synchronised time."""
+
+    from repro_torch.obs import Observability
+
+    cfg = get_config("qwen1.5-4b").replace(n_layers=2)
+    api = build_model(cfg)
+    params = api.init(0, device=cuda)
+    obs = Observability(trace=False, metrics=False, profile=True,
+                        profile_warmup_ticks=0)
+    srv = Server(api, params, batch=4, context=256, prefill_chunk=32,
+                 paged=True, page_size=16, kv_pages=64, obs=obs)
+    g = torch.Generator().manual_seed(0)
+    for n in (40, 90, 17, 130, 64):
+        srv.submit(torch.randint(1, cfg.vocab, (n,), generator=g).tolist(),
+                   8)
+    with torch.inference_mode():
+        srv.run_until_drained()
+    rep = obs.profiler.report()
+    for phase in ("decode", "prefill"):
+        entry = rep[phase]
+        kv, core = entry["ranges"]["attn.kv"], entry["ranges"]["attn.core"]
+        assert kv["count"] == core["count"] == 2 * entry["count"]
+        assert 0 < kv["total_us"] + core["total_us"] <= entry["total_us"]
+
+
 def test_dispatch_probe_times_the_host_clock(cuda, monkeypatch):
     """Each dispatch sample is host time from the launch to the end of
     ``torch.cuda.synchronize``: no CUDA event is recorded, and every
