@@ -34,7 +34,10 @@ resume).  A sliding-window model hands back pages that fell out of the
 window.  ``share_prefix=True`` (paged only) maps the pages of a live
 slot's written prefix into a new request's table (copy on write: the
 first write into a still-shared page copies it first), so N requests
-with one system prompt prefill it once.
+with one system prompt prefill it once.  Where the paged state holds
+nothing per slot (attention pools alone: no SSM, cross or enc-dec
+state), the prefill step is handed only the prefilling slots' rows and
+page-table rows instead of every slot padded to length 0.
 
 ``speculate=`` (a drafter, :mod:`repro_torch.runtime.speculate`) adds a
 third per-tick population: decoding slots with a draft verify
@@ -89,7 +92,8 @@ def _prefill_counts(pos: np.ndarray, n: np.ndarray, positions: int) -> dict:
     """A prefill step's counters: the keys its slots read (a slot at
     ``pos`` with ``n`` chunk tokens reads ``pos + n``), their real
     query-key pairs (its token ``i`` attends ``pos + i + 1`` keys), the
-    chunk tokens, and the positions the padded step computes."""
+    chunk tokens, and the positions the step computes (its rows times
+    the chunk)."""
 
     pos, n = pos.astype(np.int64), n.astype(np.int64)
     return {"kv_tokens": int((pos + n).sum()),
@@ -162,6 +166,13 @@ class Server:
                 "share_prefix=True needs pure-attention decode state: "
                 "SSM/recurrent state at the share point is per-slot and "
                 "has no position index to share through")
+        # a state of shared page pools alone holds nothing per slot: the
+        # prefill step then takes only the prefilling slots' rows (their
+        # page-table rows address the pool), not every slot padded to
+        # length 0
+        self._prefill_rows_only = paged and set(self.state) == {"blocks"} \
+            and all(set(entry) == {"kv"}
+                    for entry in self.state["blocks"].values())
         self.slot_req: list[Request | None] = [None] * batch
         self.slot_pos = np.zeros(batch, np.int32)   # per-slot token count
         self._slot_dirty = np.zeros(batch, bool)    # retired -> stale state
@@ -692,8 +703,12 @@ class Server:
                 if ob is not None:
                     t0 = ob.phase_begin("prefill", self.ticks)
                 T = self.prefill_chunk
-                tokens = np.zeros((self.batch, T), np.int32)
-                lengths = np.zeros(self.batch, np.int32)
+                # row i of the step is slot rows[i]
+                rows = (prefill if self._prefill_rows_only
+                        else list(range(self.batch)))
+                row = {s: i for i, s in enumerate(rows)}
+                tokens = np.zeros((len(rows), T), np.int32)
+                lengths = np.zeros(len(rows), np.int32)
                 for s in prefill:
                     req = self.slot_req[s]
                     cur = req._cursor  # type: ignore[attr-defined]
@@ -701,26 +716,29 @@ class Server:
                     # request re-prefills prompt + out and resumes exactly
                     stream = req.prompt + req.out
                     n = min(T, req._prefill_target - cur)
-                    tokens[s, :n] = stream[cur:cur + n]
-                    lengths[s] = n
+                    tokens[row[s], :n] = stream[cur:cur + n]
+                    lengths[row[s]] = n
                 if ob is not None:
-                    counts = _prefill_counts(self.slot_pos[prefill],
-                                             lengths[prefill], self.batch * T)
+                    counts = _prefill_counts(
+                        self.slot_pos[prefill],
+                        lengths[[row[s] for s in prefill]], len(rows) * T)
                 with span("serve.dispatch", clock="host"):
+                    pos = _snapshot(self.slot_pos[rows], self.device)
+                    table = ((_snapshot(self.alloc.page_table[rows],
+                                        self.device),) if self.paged else ())
                     logits, self.state = self.api.prefill_step(
-                        self.params, self.state, self._tensor(tokens),
-                        _snapshot(self.slot_pos, self.device),
-                        self._tensor(lengths), *extra)
+                        self.params, self.state, self._tensor(tokens), pos,
+                        self._tensor(lengths), *table)
                 with span("serve.readback", clock="host"):
                     nxt = logits.argmax(dim=-1).cpu().numpy()
                     self.prefill_chunks += len(prefill)
                     for s in prefill:
                         req = self.slot_req[s]
-                        n = int(lengths[s])
+                        n = int(lengths[row[s]])
                         req._cursor += n  # type: ignore[attr-defined]
                         self.slot_pos[s] += n
                         if req._cursor >= req._prefill_target:
-                            req.out.append(int(nxt[s]))
+                            req.out.append(int(nxt[row[s]]))
                             self.tokens_generated += 1
                             self._retire_if_done(s)
                 if ob is not None:

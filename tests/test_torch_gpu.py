@@ -26,7 +26,7 @@ from repro_torch.kernels.sweep_eval.ops import sweep_eval, sweep_ref  # noqa: E4
 from repro_torch.kernels.tuned_reduction.kernel import reduce_kernel  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.attention import attention  # noqa: E402
-from repro_torch.models.common import tree_map  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.models.transformer import block_params  # noqa: E402
 from repro_torch.runtime import Server  # noqa: E402
 from repro_torch.kernels.tuned_reduction.ops import (  # noqa: E402
@@ -741,6 +741,54 @@ def test_self_draft_accepts_every_draft_on_the_card(cuda, paged):
     assert outs == base
     st = srv.stats()
     assert st["spec_proposed"] > 0 and st["accept_rate"] == 1.0
+
+
+def test_prefill_over_some_rows_on_the_card_equals_the_padded_step(cuda):
+    """Reduced qwen1.5-4b in bf16 on the card, paged: ``prefill_step``
+    over three prefilling rows of eight (one starting mid-page) against
+    the padded step over all eight, the others at length 0: the same
+    logits for those rows and the same pools, within bf16 round-off."""
+
+    import numpy as np
+    from repro_torch.runtime.kv import NO_PAGE, PagedKVSpec
+
+    cfg = get_config("qwen1.5-4b").reduced().replace(head_dim=64)
+    api = build_model(cfg)
+    params = tree_map(lambda t: t.to(cuda), api.init(0, device="cpu"))
+    B, context, page, T = 8, 64, 16, 32
+    spec = PagedKVSpec.for_server(context=context, page_size=page, batch=B)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    state = tree_map(
+        lambda t: torch.randn(t.shape, generator=g, device=cuda).to(t.dtype),
+        api.init_decode_state(B, context, spec, device=cuda))
+    rng = np.random.default_rng(4)
+    pos = np.array([0, 17, 5, 32, 0, 9, 30, 2], np.int32)
+    rows = [1, 3, 6]
+    lengths = np.zeros(B, np.int32)
+    lengths[rows] = [32, 7, 20]
+    table = np.full((B, spec.pages_per_slot), NO_PAGE, np.int32)
+    free = iter(rng.permutation(spec.n_pages).tolist())
+    for s in range(B):
+        for j in range(-(-int(pos[s] + lengths[s]) // page)):
+            table[s, j] = next(free)
+    tokens = rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)
+
+    def step(r):
+        st = tree_map(torch.clone, state)
+        args = [torch.from_numpy(a[r]).to(cuda)
+                for a in (tokens, pos, lengths, table)]
+        with torch.inference_mode():
+            logits, st = api.prefill_step(params, st, *args)
+        return logits, st
+
+    full, full_state = step(list(range(B)))
+    some, some_state = step(rows)
+    torch.testing.assert_close(some.float(), full[rows].float(),
+                               rtol=2e-2, atol=2e-2)
+    for got, want in zip(tree_leaves(some_state), tree_leaves(full_state)):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2e-2, atol=2e-2)
 
 
 def test_choose_batch_measures_drains_on_the_card_then_hits(cuda, tmp_path):

@@ -24,6 +24,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_row_spy import PrefillRowSpy  # noqa: E402
+
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.models import attention as jax_attn  # noqa: E402
@@ -580,6 +582,8 @@ def _drain(server_cls, api, params, *, seed, vocab, submit_at=3, n_first=4,
     admissions); returns outputs, ticks, deferrals, kv_stats, stats."""
 
     srv = server_cls(api, params, **kw)
+    if isinstance(api, PrefillRowSpy):
+        api.server = srv
     rng = np.random.default_rng(seed)
     if prompts is None:
         prompts = [rng.integers(0, vocab, int(rng.integers(3, 20))).tolist()
@@ -605,21 +609,28 @@ def _same_as_jax(want, got):
 
 
 @pytest.mark.parametrize("name,window,batch", [
-    ("smollm-135m", None, 3), ("qwen1.5-4b", None, 2), ("smollm-135m", 8, 3)])
+    ("smollm-135m", None, 3), ("qwen1.5-4b", None, 2), ("smollm-135m", 8, 3),
+    ("qwen1.5-4b", None, 4)])
 @pytest.mark.parametrize("chunk", [4, 32])
 @pytest.mark.parametrize("kv_pages", [None, 13])
 def test_paged_server_matches_jax_server(name, window, batch, chunk,
                                          kv_pages):
     """Same tokens, ticks, deferrals and kv_stats under full backing and
-    under page pressure (13 pages of 4 tokens for up to 3 slots of 48)."""
+    under page pressure (13 pages of 4 tokens for up to 4 slots of 48).
+    Each prefill step is handed the prefilling slots' rows alone; at 4
+    slots, some while the others decode."""
 
     (japi, jp), (api, p) = _models(name, window=window)
     kw = dict(batch=batch, context=48, prefill_chunk=chunk, seed=1,
               vocab=api.cfg.vocab, paged=True, page_size=4,
               kv_pages=kv_pages)
     want = _drain(JaxServer, japi, jp, **kw)
-    got = _drain(Server, api, p, **kw)
+    spy = PrefillRowSpy(api)
+    got = _drain(Server, spy, p, **kw)
     _same_as_jax(want, got)
+    spy.assert_prefilling_rows_only()
+    if batch == 4:
+        assert any(c["decoding"] and c["rows"] < batch for c in spy.calls)
     contiguous = _drain(Server, api, p, **{**kw, "paged": False,
                                            "kv_pages": None})
     assert got[0] == contiguous[0]
