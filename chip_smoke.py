@@ -26,7 +26,13 @@ Each phase prints one JSON line:
    spills and ptxas warnings of every bf16 instantiation, and an f32 case
    at the same shape; each f32 row (3c and 3d) gives its kernel's
    registers and spills (a spill fails the run) and the SM clock read
-   before and after its timing;
+   before and after its timing; 3e is the paged decode kernel at
+   chat-c64's decode step and at every shape the other phases serve
+   paged (qwen3-32b whole at one slot, phase 7's four slots, hymba's and
+   mixtral's windows, smollm's 9 / 3 heads), each held to its plain
+   version and timed beside its byte bound over the live keys, its plain
+   version and SDPA over the already-gathered K/V, with its
+   instantiations' registers and spills (a spill fails the run);
 4. ``tune``   — the tuning path: a TuningPlan (the §7 abstract platform
    with the sweep engine, the four kernel tunables with the measure
    engine) into a temporary cache, a second run that must hit, and
@@ -253,6 +259,32 @@ FLASH_CASES = (("bfloat16", 1, 20, 4096, 128, True, None),
                ("float32", 1, 20, 1024, 64, True, None),
                ("float32", 1, 20, 4096, 128, True, None),
                ("float32", 1, 20, 640, 128, True, None))   # phase 7 (d)
+# phase 3e, paged decode at the shapes the port serves paged, pages of 16,
+# bf16: (case, B, H, Hkv, hd, pages in the pool, page-table width M,
+# window, positions).  chat-c64's decode step: 64 slots of 64 pages in a
+# 2,304-page pool, qwen1.5-4b's 20 heads of 128, each slot at a position
+# drawn as the cell draws its requests ("chat": a prompt, lognormal median
+# 256, sigma 0.9, in [32, 768], plus a share of an output, lognormal median
+# 96, sigma 0.8, in [16, 256]); qwen3-32b served whole, one slot of 8 kv
+# heads of 8 query heads at 4,096 keys; phase 7's 4 slots of qwen1.5-4b (4
+# splits); hymba-1.5b's 25 / 5 heads of 64 with its 1,024-token window at
+# 2,048 (phase 12), past the window; smollm-135m's 9 / 3 heads of 64 at
+# 8 slots of 2,048; mixtral-8x22b's 48 / 8 heads of 128 with its 4,096-token
+# window at 8,192, past the window.  Positions (lo, hi) are drawn uniform
+# in [lo, hi]; with a window, the pages wholly before it are -1, as the
+# Server gives them back.  The kernel is held to its plain version at
+# 1e-2 + 1e-2 |want| (the output rounded once to bf16 after f32 sums in
+# another order) and rel L2 <= 1e-2
+PAGED_CASES = (("chat-c64", 64, 20, 20, 128, 2304, 64, None, "chat"),
+               ("qwen3-32b-b1", 1, 64, 8, 128, 320, 256, None,
+                (4095, 4095)),
+               ("qwen1.5-4b-b4", 4, 20, 20, 128, 256, 64, None,
+                (256, 527)),
+               ("hymba-1.5b", 4, 25, 5, 64, 512, 128, 1024, (1024, 2047)),
+               ("smollm-135m", 8, 9, 3, 64, 1024, 128, None, (0, 2047)),
+               ("mixtral-8x22b", 2, 48, 8, 128, 1024, 512, 4096,
+                (4096, 8191)))
+PAGED_TOL = 1e-2
 # the model path: qwen1.5-4b, a forward at S = 4096, and a Server of 4
 # slots x 1024 context draining 4 requests of 512 + 16 tokens
 MODEL = "qwen1.5-4b"
@@ -534,6 +566,104 @@ def bound_ms(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def chat_positions(rng, B: int, limit: int):
+    """Each of ``B`` decoding slots' position as chat-c64 draws its
+    requests: a prompt plus a uniform share of an output (PAGED_CASES)."""
+
+    import numpy as np
+    prompt = np.clip(np.round(rng.lognormal(np.log(256), 0.9, B)), 32, 768)
+    out = np.clip(np.round(rng.lognormal(np.log(96), 0.8, B)), 16, 256)
+    pos = prompt + np.floor(rng.uniform(0, 1, B) * out)
+    return np.minimum(pos, limit).astype(np.int64)
+
+
+def paged_decode_cases(dev, gen, info) -> dict:
+    """Phase 3e: the paged decode kernel at PAGED_CASES against its plain
+    version, timed beside its bound (the live keys' K and V, the query,
+    the output and the live page-table entries, each read or written
+    once, at 3.35 TB/s; its 4 flops a head, key and dim at the f32 FMA
+    rate), the plain version and SDPA over the already-gathered
+    contiguous K/V (a yardstick the port never calls).  Returns the
+    chat-c64 row."""
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.common import F32_FLOPS
+    from repro_torch.kernels.paged_decode import (num_splits, paged_decode,
+                                                  paged_decode_ref)
+    from repro_torch.models.attn_core import gather_pool, pool_validity
+
+    lines = info.ptxas.get("paged_decode.cu", [])
+    usage = _build.ptxas_usage(lines)
+    emit("kernel", name="paged_decode", case="ptxas", usage=usage,
+         warnings=[ln for ln in lines
+                   if "warning" in ln or "Performance" in ln])
+    for entry, u in usage.items():
+        check_no_spills(entry, u)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(0)
+    rows = []
+    for case, B, H, Hkv, hd, P, M, window, drawn in PAGED_CASES:
+        ps = 16
+        cur = (chat_positions(rng, B, M * ps - 1) if drawn == "chat"
+               else rng.integers(drawn[0], drawn[1] + 1, B))
+        first = (np.zeros(B, np.int64) if window is None
+                 else np.maximum(cur - window + 1, 0))
+        pages = cur // ps + 1
+        perm = rng.permutation(P)
+        table = np.full((B, M), -1, np.int32)
+        starts = np.concatenate([[0], np.cumsum(pages)])
+        if starts[-1] > P:
+            raise AssertionError(f"{case}: {starts[-1]} pages of {P}")
+        for b in range(B):
+            table[b, :pages[b]] = perm[starts[b]:starts[b + 1]]
+            table[b, :first[b] // ps] = -1
+        k, v = (torch.randn(P, Hkv, ps, hd, generator=gen, device=dev
+                            ).to(torch.bfloat16) for _ in range(2))
+        q = torch.randn(B, H, 1, hd, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        table_t = torch.from_numpy(table).to(dev)
+        cur_t = torch.from_numpy(cur).to(dev)
+        run = lambda: paged_decode(q, k, v, table_t, cur_t, window=window)
+        plain = lambda: paged_decode_ref(q, k, v, table_t, cur_t,
+                                         window=window, scale=hd ** -0.5)
+        got, want = run().float(), plain().float()
+        diff = (got - want).abs()
+        rel_l2 = float(diff.norm() / want.norm())
+        if not bool((diff <= PAGED_TOL + PAGED_TOL * want.abs()).all()) \
+                or not rel_l2 <= 1e-2:
+            raise AssertionError(f"paged decode {case}: max err "
+                                 f"{diff.max()}, rel L2 {rel_l2}")
+        keys = int((cur + 1 - first).sum())
+        read_pages = int((cur // ps - first // ps + 1).sum())
+        nbytes = (keys * Hkv * hd * 2 * 2 + 2 * q.numel() * 2
+                  + read_pages * 4 + B * 8)
+        flops = 4 * H * hd * keys
+        bb, by = bound_ms(nbytes, flops, F32_FLOPS)
+        kc, vc = gather_pool(k, table_t), gather_pool(v, table_t)
+        kp = torch.arange(M * ps, device=dev)[None, :]
+        keep = ((kp <= cur_t[:, None]) & (kp >= torch.from_numpy(first).to(
+            dev)[:, None]) & pool_validity(table_t, ps))[:, None, None, :]
+        library = lambda: sdpa(q, kc, vc, attn_mask=keep,
+                               enable_gqa=H != Hkv)
+        ms = time_ms(run, 50)
+        row = {"case": case, "B": B, "H": H, "Hkv": Hkv, "hd": hd, "M": M,
+               "window": window, "pool_pages": P, "keys": keys,
+               "splits": num_splits(B, Hkv, M),
+               "max_abs_err": float(diff.max()), "rel_l2": rel_l2,
+               "tol": [PAGED_TOL, PAGED_TOL, 1e-2], "ms": ms,
+               "plain_ms": time_ms(plain, 5, warmup=1),
+               "library_ms": time_ms(library, 20),
+               "bound_ms": bb, "bound_by": by, "bytes": nbytes,
+               "share_of_bound": bb / ms}
+        emit("kernel", name="paged_decode", **row)
+        rows.append(row)
+        del k, v, q, kc, vc, keep, got, want, diff
+    torch.cuda.empty_cache()
+    return rows[0]
 
 
 def model_path(dev, gen, counters, flash_ms: float) -> dict:
@@ -4465,6 +4595,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ops import (
         FlashAttentionTunable, attention_ref, flash_attention, visible_pairs)
     from repro_torch.kernels.matmul_tuned.kernel import matmul_kernel
+    from repro_torch.kernels.paged_decode import paged_decode_kernel
     from repro_torch.kernels.matmul_tuned.ops import (MatmulTunable,
                                                       matmul_ref, matmul_tuned)
     from repro_torch.kernels.sweep_eval.kernel import (point_instructions,
@@ -4745,6 +4876,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
+    # 3e. paged decode at the serving shapes (library: SDPA over the
+    # gathered K/V, timed only as a yardstick); its launches from here on
+    # are the main path's
+    summary["paged_decode"] = paged_decode_cases(dev, gen, info)
+    paged_decode_kernel.launches = 0
+
     # 4. the main path: plan -> measure -> cache -> @autotune ----------------
     counters = (reduce_kernel, sweep_kernel, matmul_kernel, flash_kernel)
     for c in counters:
@@ -4811,6 +4948,7 @@ def main() -> int:
 
     # 6. the model path: qwen1.5-4b at full width ----------------------------
     names = list(launches)
+    paged_before = paged_decode_kernel.launches
     model = model_path(dev, gen, counters, summary["flash_attention"]["ms"])
     emit("kernels", phase_of="model", launches=dict(zip(names,
                                                         model["launches"])))
@@ -4819,10 +4957,15 @@ def main() -> int:
                              "path")
     emit("kernels", phase_of="paged", launches=dict(zip(
         names, model["paged_launches"])))
-    # the paged path attends its pages with plain ops; the self-draft's
-    # forwards go through the flash kernel
+    # the paged path decodes through the paged decode kernel; the
+    # self-draft's forwards go through the flash kernel
     if model["paged_launches"][names.index("flash_attention")] <= 0:
         raise AssertionError("flash attention never launched on the paged "
+                             "path")
+    emit("kernels", phase_of="model+paged",
+         paged_decode=paged_decode_kernel.launches - paged_before)
+    if paged_decode_kernel.launches <= paged_before:
+        raise AssertionError("paged decode never launched on the paged "
                              "path")
     # 8. the model checker, held to the sweep_eval kernel on the card ------
     checked = model_check(dev, counters, model["shared_trace"])
@@ -4918,7 +5061,12 @@ def main() -> int:
                                 "src/repro/kernels/matmul_tuned/kernel.py:46"),
                "flash_attention": (
                    "src/repro_torch/csrc/flash_attention.cu",
-                   "src/repro/kernels/flash_attention/kernel.py:107")}
+                   "src/repro/kernels/flash_attention/kernel.py:107"),
+               "paged_decode": (
+                   "src/repro_torch/csrc/paged_decode.cu",
+                   "none: src/repro/models/attention.py decode_attention_paged "
+                   "is plain jnp")}
+    launches["paged_decode"] = paged_decode_kernel.launches
     kernels = []
     for k, (src, replaces) in sources.items():
         row = summary[k]

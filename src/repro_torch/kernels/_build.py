@@ -51,6 +51,11 @@ SIGNATURES: dict[str, list] = {
     # bq, bk, stream
     "fa_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                    _P],
+    # q, k, v, o, page_table, pt_stride, cur_len, len_stride, B, H, Hkv,
+    # D, ps, M, P, dtype, has_window, window, scale, splits, part_o,
+    # part_lse, stream
+    "pd_decode": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                  _I, _I, _I, _I, _F, _I, _P, _P, _P],
 }
 
 

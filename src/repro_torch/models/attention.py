@@ -23,11 +23,17 @@ the same values.  Cross attention (``attention(x_kv=...)``, and
 :func:`decode_cross_attention` against precomputed encoder or image K/V)
 has no RoPE and no mask, and never takes the flash kernel.
 
+Paged decode (:func:`decode_attention_paged`, T = 1) attends through the
+hand-written CUDA kernel (:mod:`repro_torch.kernels.paged_decode`),
+which reads each slot's live pages in place; on a CPU tensor its plain
+version runs, the page-table gather and grouped f32 core that the
+chunked paged path (T > 1) keeps.
+
 Each path names two ranges (:func:`repro_torch.obs.profile.span`, timed
 on the device's stream): ``attn.kv``, the keys and values made ready for
-the core (the cache write, the page-table gather, the head repeat), and
-``attn.core``, the attention core over them (upcast, scores, mask,
-softmax, values).
+the core (the cache write, the page-table gather, the head repeat; the
+paged decode's write alone), and ``attn.core``, the attention core over
+them (upcast, scores, mask, softmax, values; the paged decode kernel).
 """
 
 from __future__ import annotations
@@ -40,10 +46,13 @@ import torch
 from ..configs.base import ArchConfig
 from ..distribute.sharding import current_ctx
 from ..distribute.sharding import logical_constraint as lc
+# bound as a module, not by name: the kernel's plain version imports
+# .attn_core, so a process that imports the kernel first runs this module
+# while the kernel's package is half loaded
+from ..kernels.paged_decode import ops as paged_decode_ops
 from ..obs.profile import span
+from .attn_core import NEG_INF, gather_pool, grouped_sdpa, pool_validity
 from .common import DEFAULT_DTYPE, PSpec, rms_norm, rope
-
-NEG_INF = -1e30
 
 
 def attn_specs(cfg: ArchConfig, cross: bool = False) -> dict:
@@ -435,7 +444,7 @@ def decode_attention(p: dict, cfg: ArchConfig, x: torch.Tensor, cache: dict,
     mask = valid[:, None, None, None, :]              # (B, 1, 1, 1, C)
 
     with span("attn.core"):
-        o = _on_shards(_grouped_sdpa, q, cache["k"], cache["v"], mask,
+        o = _on_shards(grouped_sdpa, q, cache["k"], cache["v"], mask,
                        cfg.hd ** -0.5).to(x.dtype)
     out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
     return lc(out, "batch", "seq", "embed"), cache
@@ -511,29 +520,11 @@ def decode_attention_chunked(p: dict, cfg: ArchConfig, x: torch.Tensor,
                 buf.copy_(torch.where(hit[:, None, :, None],
                                       vals.to(buf.dtype), buf))
     with span("attn.core"):
-        o = _on_shards(_grouped_sdpa, q, k_all, v_all, mask,
+        o = _on_shards(grouped_sdpa, q, k_all, v_all, mask,
                        cfg.hd ** -0.5).to(x.dtype)
     out = lc(torch.einsum("bhsk,hkd->bsd", o, p["wo"]), "batch", "seq",
              "embed")
     return out, cache
-
-
-def _grouped_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  mask: torch.Tensor, scale: float) -> torch.Tensor:
-    """Grouped GQA attention: contract q head-groups against the
-    kv-head cache directly (no head repeat).  q: (B, H, T, hd); k/v:
-    (B, Hkv, S, hd); mask broadcastable to (B, Hkv, g, T, S); returns
-    (B, H, T, hd) in f32."""
-
-    B, H, T, hd = q.shape
-    Hkv = k.shape[1]
-    g = H // Hkv
-    qg = q.reshape(B, Hkv, g, T, hd).float() * scale
-    s = torch.einsum("bkgtd,bksd->bkgts", qg, k.float())
-    s = s.masked_fill(~mask, NEG_INF)
-    pr = torch.softmax(s, dim=-1)
-    og = torch.einsum("bkgts,bksd->bkgtd", pr, v.float())
-    return og.reshape(B, H, T, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -560,23 +551,6 @@ def kv_pool_specs(cfg: ArchConfig, n_pages: int, page_size: int,
     }
 
 
-def _gather_pool(pool_kv: torch.Tensor,
-                 page_table: torch.Tensor) -> torch.Tensor:
-    """(P, Hkv, ps, hd) pool -> (B, Hkv, M*ps, hd) per-slot linear view
-    through the page table, a copy (unallocated entries gather page 0:
-    callers mask them by ``page_table >= 0``)."""
-
-    g = pool_kv[torch.clamp(page_table, min=0)]     # (B, M, Hkv, ps, hd)
-    B, M, Hkv, ps, hd = g.shape
-    return g.transpose(1, 2).reshape(B, Hkv, M * ps, hd)
-
-
-def _pool_validity(page_table: torch.Tensor, page_size: int) -> torch.Tensor:
-    """(B, M*ps) bool: which linear positions are backed by a live page."""
-
-    return torch.repeat_interleave(page_table >= 0, page_size, dim=1)
-
-
 def paged_writes(page_table: torch.Tensor, pos: torch.Tensor,
                  gate: torch.Tensor, page_size: int) -> tuple:
     """Where a step's gated tokens land in the pool.
@@ -599,6 +573,15 @@ def paged_writes(page_table: torch.Tensor, pos: torch.Tensor,
     return b, t, phys[b, t], torch.remainder(pos, page_size)[b, t], lp[b, t]
 
 
+def _paged_store(pool: dict, writes: tuple, k_new: torch.Tensor,
+                 v_new: torch.Tensor) -> None:
+    """Store a step's gated tokens in the pool, in place."""
+
+    b, t, phys, off, _ = writes
+    for name, new in (("k", k_new), ("v", v_new)):
+        pool[name][phys, :, off] = new[b, :, t].to(pool[name].dtype)
+
+
 def _paged_kv(pool: dict, page_table: torch.Tensor, writes: tuple,
               k_new: torch.Tensor, v_new: torch.Tensor, *, write: bool):
     """The slot's linear K/V views (B, Hkv, M*ps, hd) holding this
@@ -606,19 +589,16 @@ def _paged_kv(pool: dict, page_table: torch.Tensor, writes: tuple,
     gather; else gather and place them in the gathered copies only, so
     the shared pool is never touched."""
 
-    b, t, phys, off, lp = writes
+    if write:
+        _paged_store(pool, writes, k_new, v_new)
+        return [gather_pool(pool[name], page_table) for name in ("k", "v")]
+    b, t, _, off, lp = writes
     ps = pool["k"].shape[2]
     out = []
     for name, new in (("k", k_new), ("v", v_new)):
-        buf = pool[name]
-        val = new[b, :, t].to(buf.dtype)            # (n, Hkv, hd)
-        if write:
-            buf[phys, :, off] = val
-            out.append(_gather_pool(buf, page_table))
-        else:
-            lin = _gather_pool(buf, page_table)
-            lin[b, :, lp * ps + off] = val
-            out.append(lin)
+        lin = gather_pool(pool[name], page_table)
+        lin[b, :, lp * ps + off] = new[b, :, t].to(lin.dtype)
+        out.append(lin)
     return out
 
 
@@ -660,13 +640,13 @@ def decode_attention_chunked_paged(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
     kp = torch.arange(M * ps, device=dev)[None, None, :]    # (1, 1, M*ps)
     qp = pos[:, :, None]                                # (B, T, 1)
-    mask = (kp <= qp) & _pool_validity(page_table, ps)[:, None, :]
+    mask = (kp <= qp) & pool_validity(page_table, ps)[:, None, :]
     if window is not None:
         mask &= kp >= qp - window + 1
     mask = mask[:, None, None, :, :]                    # (B, 1, 1, T, M*ps)
 
     with span("attn.core"):
-        o = _on_shards(_grouped_sdpa, q, k, v, mask,
+        o = _on_shards(grouped_sdpa, q, k, v, mask,
                        cfg.hd ** -0.5).to(x.dtype)
     out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
     return lc(out, "batch", "seq", "embed"), pool
@@ -677,14 +657,27 @@ def decode_attention_paged(p: dict, cfg: ArchConfig, x: torch.Tensor,
                            writes: tuple, *, window: int | None = None
                            ) -> tuple[torch.Tensor, dict]:
     """One-token attention against a paged pool, writing it in place: the
-    paged sibling of :func:`decode_attention`, and
+    paged sibling of :func:`decode_attention`, and the math of
     :func:`decode_attention_chunked_paged` at T = 1.  x: (B, 1, d);
     ``writes`` from :func:`paged_writes` with positions ``cur_len`` and
-    the per-slot ``active`` gate."""
+    the per-slot ``active`` gate.  The token is stored first; then
+    :func:`~repro_torch.kernels.paged_decode.paged_decode` reads each
+    slot's live pages in place (a slot with no valid key attends to
+    nothing and gets zeros)."""
 
-    out, pool = decode_attention_chunked_paged(p, cfg, x, pool, page_table,
-                                               cur_len, writes,
-                                               window=window)
+    B = x.shape[0]
+    cur_len = per_slot(cur_len, B, x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, x)
+    if cfg.use_rope:
+        q = rope(q, cur_len[:, None], cfg.rope_theta)
+        k_new = rope(k_new, cur_len[:, None], cfg.rope_theta)
+    with span("attn.kv"):
+        _paged_store(pool, writes, k_new, v_new)
+    with span("attn.core"):
+        o = paged_decode_ops.paged_decode(q, pool["k"], pool["v"],
+                                          page_table, cur_len, window=window,
+                                          scale=cfg.hd ** -0.5)
+    out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
     return lc(out, "batch", "seq", "embed"), pool
 
 

@@ -66,6 +66,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..kernels.paged_decode import paged_decode_kernel
 from ..models.api import ModelAPI
 from ..models.common import tree_leaves
 from ..obs.profile import span
@@ -665,6 +666,7 @@ class Server:
                     t0 = ob.phase_begin("decode", self.ticks)
                     # each slot's query reads its slot_pos + 1 keys
                     keys = int(self.slot_pos[decode].sum()) + len(decode)
+                    called = paged_decode_kernel.calls
                 tokens = np.zeros((self.batch, 1), np.int32)
                 mask = np.zeros(self.batch, bool)
                 for s in decode:
@@ -685,8 +687,11 @@ class Server:
                         self.tokens_generated += 1
                         self._retire_if_done(s)
                 if ob is not None:
+                    # the paged decode kernel's calls in the step, a layer
                     ob.phase_end("decode", self.ticks, t0, sync=self.state,
-                                 counts={"kv_tokens": keys, "qk_pairs": keys},
+                                 counts={"kv_tokens": keys, "qk_pairs": keys,
+                                         "attn_kernel_calls":
+                                         paged_decode_kernel.calls - called},
                                  slots=len(decode))
 
         if spec:

@@ -846,8 +846,13 @@ def test_attention_ranges_lie_inside_their_synchronised_phase(cuda):
     """A profiled paged drain of a 2-layer cut of qwen1.5-4b at full width
     (bf16, on the card) times each layer's ``attn.kv`` and ``attn.core``
     by CUDA events on the stream: once a layer and step, and together
-    within the phase's synchronised time."""
+    within the phase's synchronised time.  Every decode step goes through
+    the paged decode kernel: ``attn_kernel_calls`` counts its calls, a
+    layer a step, they are all the kernel's calls in the drain, and each
+    launched once, or twice where the step splits its pages."""
 
+    from repro_torch.kernels.paged_decode import (num_splits,
+                                                  paged_decode_kernel)
     from repro_torch.obs import Observability
 
     cfg = get_config("qwen1.5-4b").replace(n_layers=2)
@@ -861,6 +866,7 @@ def test_attention_ranges_lie_inside_their_synchronised_phase(cuda):
     for n in (40, 90, 17, 130, 64):
         srv.submit(torch.randint(1, cfg.vocab, (n,), generator=g).tolist(),
                    8)
+    calls, before = paged_decode_kernel.calls, paged_decode_kernel.launches
     with torch.inference_mode():
         srv.run_until_drained()
     rep = obs.profiler.report()
@@ -869,6 +875,13 @@ def test_attention_ranges_lie_inside_their_synchronised_phase(cuda):
         kv, core = entry["ranges"]["attn.kv"], entry["ranges"]["attn.core"]
         assert kv["count"] == core["count"] == 2 * entry["count"]
         assert 0 < kv["total_us"] + core["total_us"] <= entry["total_us"]
+    splits = num_splits(4, cfg.n_kv_heads, srv.alloc.page_table.shape[1])
+    per_call = 2 if splits > 1 else 1
+    decode = rep["decode"]
+    assert decode["attn_kernel_calls"] == cfg.n_layers * decode["count"]
+    assert paged_decode_kernel.calls - calls == decode["attn_kernel_calls"]
+    assert paged_decode_kernel.launches - before == \
+        per_call * decode["attn_kernel_calls"]
 
 
 def test_dispatch_probe_times_the_host_clock(cuda, monkeypatch):
